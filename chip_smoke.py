@@ -8,12 +8,19 @@ Phases (one line each; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from clrs_tpu_torch/csrc, with its seconds;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path (bit-identical is the tolerance), with times;
-  4. delsarte(3, 10) through clrs_tpu_torch.solvesdp(device="cuda"): error
-     code 0, Optimal, objective within 1e-9 of 13.15831434739031, and every
-     kernel's launch count > 0 with every plain version's call count 0;
+     shapes of the main path and at nw = 5 and 8 (bit-identical is the
+     tolerance), the split GEMM route against the fused one, and at one
+     or two shapes per kernel (one per TPU kernel it replaces) its time,
+     its plain version's time (time_ms), its bound on this card (bound)
+     and a library call's time where one PyTorch call computes the same
+     function;
+  4. delsarte(3, 10) through clrs_tpu_torch.solvesdp (the card is its
+     default device): error code 0, Optimal, objective within 1e-9 of
+     13.15831434739031, every kernel of its path launched (counts set to 0
+     just before, read just after) and no plain version run;
   5. three IPM iterations of delsarte(3, 95) (P = 192, SOS blocks 96/95:
-     blocked Cholesky and solves, panel-scale GEMMs).
+     blocked Cholesky and solves, the fused GEMM route), counted the same
+     way.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -43,19 +50,199 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
+SPIN_CYCLES_PER_S = 2e9      # clock64 cycles per second at most (H100 boost)
+
+
 def time_ms(fn, reps=5):
+    """Milliseconds per call of ``fn`` on the card: CUDA events around
+    ``reps`` calls, after a warm-up, queued behind a spin kernel that lasts
+    about twice as long as the host takes to issue them. The device then
+    runs the calls back to back, so the host's time between launches does
+    not count while the launch queue holds them; a plain version that
+    issues thousands of launches per call overflows the queue, and its time
+    is the host's."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = min(2 * reps * (time.perf_counter() - h0), 0.2)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time one H100 could take for a kernel's work, the larger
+# of its bytes over the memory rate and its operations over their unit's
+# peak (NVIDIA's H100 SXM data sheet, dense rates at the full 700 W limit).
+# Bytes: each input element the function needs read once, each output
+# written once. Operations: closed forms of the algorithm each kernel runs
+# (clrs_tpu_torch/dd/ops.py, which csrc/expansion.cuh mirrors op for op),
+# one per f32 or int32 arithmetic, compare or bit operation, and two per
+# int8 multiply-add.
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"scalar": 67e12,   # f32 outside the tensor cores; int32 alike
+                  "int8": 1979e12}   # int8 tensor-core operations
+
+
+def bound(nbytes, ops):
+    """(bound_ms, 'bytes' or 'operations'). The units run concurrently, so
+    the operations take as long as the busiest unit."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, "operations"
+
+
+def _vec_sum(k):
+    return 6 * (k - 1)                       # k - 1 two_sums of 6
+
+
+def _renorm(k, w):
+    return 3 * _vec_sum(k) + (k - w)         # three sweeps, then the tail fold
+
+
+def exp_add_ops(w):
+    """One w-word exp_add (or exp_sub: the negation folds into the sum)."""
+    return 6 * w + _renorm(2 * w, w)
+
+
+def exp_mul_ops(w):
+    """One w-word exp_mul: the splits, the two_prods (9 each) of the kept
+    diagonals, the last column, and the renormalisation."""
+    if w == 1:
+        return 1
+    return (4 * (w - 1) + 9 * w * (w - 1) // 2 + (3 * w - 2)
+            + _renorm((w - 1) ** 2 + 1, w))
+
+
+def _mul_f32_ops(w):
+    """exp_mul_f32 by a host constant (its split is free)."""
+    return 11 * (w - 1) + 2 + _renorm(2 * w - 2, w)
+
+
+def _pow2_ops(w, steps=3):
+    return 5 * steps + w * steps             # factors, then w words scaled
+
+
+def _widths(nw):
+    w, out = 1, []
+    while w < nw:
+        w = min(2 * w, nw)
+        out.append(w)
+    return out
+
+
+def exp_rsqrt_ops(nw):
+    core = 2 + sum(1 + 2 * exp_mul_ops(w) + 2 + exp_add_ops(w)
+                   + _mul_f32_ops(w) + exp_mul_ops(w) + exp_add_ops(w)
+                   for w in _widths(nw))
+    return 5 + 2 * _pow2_ops(nw) + 1 + core
+
+
+def exp_div_ops(nw):
+    core = 1 + sum(1 + 2 * exp_mul_ops(w) + 2 + 2 * exp_add_ops(w)
+                   for w in _widths(nw))
+    return 4 + 2 * _pow2_ops(nw) + core + 3 * exp_mul_ops(nw) \
+        + 2 * exp_add_ops(nw)
+
+
+def _fold_ops(nw, ndiag):
+    """The cascade's fold of ndiag int32 sums into nw words, per element:
+    per sum the split into halves, the scale 2^sc (four clamped factors
+    shared by both halves), one (nw + 4)-term vec_sum and two adds; then two
+    sweeps and the tail."""
+    return ndiag * (37 + _vec_sum(nw + 4)) + 2 * _vec_sum(nw + 2) + 2
+
+
+def _npairs(L, ndiag):
+    """Limb pairs (ta, tb) on the kept diagonals ta + tb < ndiag."""
+    return sum(min(d, L - 1) - max(0, d - L + 1) + 1 for d in range(ndiag))
+
+
+def _nbytes(t):
+    """Bytes of the distinct elements a tensor view addresses (a broadcast
+    axis, stride 0, is read once)."""
+    n = 1
+    for s, st in zip(t.shape, t.stride()):
+        n *= s if st != 0 else 1
+    return n * t.element_size() if t.numel() else 0
+
+
+def _tree_adds(lo, hi):
+    """exp_adds of the transposed solve's halving tree over rows [lo, hi),
+    summed over the rows i solved, that have a nonzero operand: node
+    [lo, hi) holds a row r > i for the hi - 1 rows i < hi - 1 (two zero
+    subtrees add up to +0)."""
+    if hi - lo == 1:
+        return 0
+    mid = lo + (hi - lo) // 2
+    return (hi - 1) + _tree_adds(lo, mid) + _tree_adds(mid, hi)
+
+
+def cost_extract(nw, L, B, d0, d1, side):
+    rows = B * (d0 if side == "a" else d1)
+    el = B * d0 * d1
+    ops = el * (2 + 4 * nw + L * (nw + _vec_sum(nw) + 3)) + rows * 25
+    return 4 * nw * el + L * el + 4 * rows, {"scalar": ops}
+
+
+def cost_limb_gemm(nw, L, nd, B, m, k, n):
+    return (B * L * (m * k + k * n) + 4 * B * m * n * (1 + nw),
+            {"int8": 2 * _npairs(L, nd) * B * m * n * k,
+             "scalar": B * m * n * _fold_ops(nw, nd)})
+
+
+def cost_int8_gemm(B, M, K, N):
+    return B * (M * K + K * N + 4 * M * N), {"int8": 2 * B * M * N * K}
+
+
+def cost_cascade(nw, L, nd, B, m, n, from_c):
+    """FROM_C reads only the kept limb-pair tiles of C and adds them up;
+    FROM_DIAGS reads the nd sums."""
+    tiles = _npairs(L, nd) if from_c else nd
+    ops = B * m * n * (_fold_ops(nw, nd) + (tiles - nd))
+    return 4 * B * m * n * (tiles + 1 + nw), {"scalar": ops}
+
+
+def cost_plmap(args, nw, numel, chain_ops):
+    """A chain over ``numel`` output elements of nw words; broadcast
+    operands are read once."""
+    nbytes = sum(_nbytes(c) for c in _flat(args)) + 4 * nw * numel
+    return nbytes, {"scalar": numel * chain_ops}
+
+
+def cost_chol(nw, B, n):
+    """Both triangles of each trailing update: the next pivot row reads the
+    upper one, and expansion products are not symmetric bit for bit."""
+    per = n * (nw + 1 + exp_rsqrt_ops(nw) + exp_mul_ops(nw))
+    per += sum(2 * r * exp_mul_ops(nw) + r * r * (exp_mul_ops(nw)
+                                                  + exp_add_ops(nw))
+               for r in range(n))
+    return 8 * nw * B * n * n + 4 * B, {"scalar": B * per}
+
+
+def cost_tri(nw, B, n, m, trans):
+    """L's lower triangle read; per column the products of the rows below
+    each pivot and their sums (the transposed form's tree adds with a
+    nonzero operand), then one scaling per row."""
+    mul, add = exp_mul_ops(nw), exp_add_ops(nw)
+    sums = _tree_adds(0, n) if trans else n * (n - 1) // 2
+    per_col = n * (n - 1) // 2 * mul + sums * add + n * (mul + add * trans)
+    ops = B * (n * exp_div_ops(nw) + m * per_col)
+    return 4 * nw * B * (n * (n + 1) // 2 + 2 * n * m), {"scalar": ops}
 
 
 def _split(v, nw):
@@ -100,6 +287,90 @@ def _compare(xs, ys):
     return same, err
 
 
+def _flat(out):
+    """A kernel's result (a tensor or nested tuples of them) as one flat
+    tuple of tensors."""
+    if isinstance(out, (tuple, list)):
+        return tuple(t for o in out for t in _flat(o))
+    return (out,)
+
+
+class Kernels:
+    """Phase 3's records: each kernel against its plain version on the card
+    (bit identity), and at its timed main-path shapes its time, its plain
+    version's time, its bound and, where one PyTorch call computes the same
+    function, that call's time."""
+
+    SRC = "clrs_tpu_torch/csrc/kernels.cu"
+    PL = "clrs_tpu/dd/pallas_linalg.py"
+
+    def __init__(self):
+        self.recs = {}
+
+    def entry(self, name, replaces):
+        return self.recs.setdefault(name, dict(
+            name=name, route="cuda", source=self.SRC, replaces=replaces,
+            launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
+            bound_ms=None, bound_by=None, library_ms=None, compared=0))
+
+    def check(self, name, replaces, kernel, plain, args, shape, cost=None,
+              reps=5, plain_reps=3, library=None):
+        """Run ``kernel(*args)`` and ``plain(*args)`` on the card and fail
+        unless they agree bit for bit. With ``cost``, the (bytes,
+        {unit: operations}) of this shape, also take the times and the
+        bound. Each timed shape is kept under ``timings``; the kernel's own
+        keys hold its first timed shape."""
+        import torch
+
+        r = self.entry(name, replaces)
+        out = _flat(kernel(*args))
+        same, err = _compare(out, _flat(plain(*args)))
+        torch.cuda.synchronize()
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["compared"] += 1
+        note = ""
+        if cost is not None:
+            t = dict(shape=shape, library_ms=None)
+            t["bound_ms"], t["bound_by"] = bound(*cost)
+            t["ms"] = time_ms(lambda: kernel(*args), reps)
+            t["plain_ms"] = time_ms(lambda: plain(*args), plain_reps)
+            if library is not None:
+                t["library_ms"] = library()
+            if "timings" not in r:
+                r.update({k: v for k, v in t.items() if k != "shape"},
+                         timed_shape=shape)
+            r.setdefault("timings", []).append(t)
+            note = (f" kernel {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms "
+                    f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}) library "
+                    f"{t['library_ms']}")
+        print(f"  {name} {shape}: max_abs_err {err}{note}", flush=True)
+        if not same:
+            fail(f"{name} differs from its plain version at {shape}: "
+                 f"max_abs_err {err}")
+
+
+def _int_mm_ms(A, B):
+    """Time of torch._int_mm on the same int8 operands (one batch
+    element, every dimension zero-padded to a multiple of 32, which leaves
+    the product as it is); None where the call is refused."""
+    import torch
+    import torch.nn.functional as F
+
+    M, K = A.shape[1:]
+    N = B.shape[2]
+    a = F.pad(A[0], (0, -K % 32, 0, -M % 32))
+    b = F.pad(B[0], (0, -N % 32, 0, -K % 32))
+    try:
+        ref = torch._int_mm(a, b)[:M, :N]
+        if not torch.equal(ref, (A[0].double() @ B[0].double()).int()):
+            fail("torch._int_mm disagrees with the exact int8 product")
+        return time_ms(lambda: torch._int_mm(a, b))
+    except RuntimeError as e:
+        print(f"  torch._int_mm refused {tuple(a.shape)}x{tuple(b.shape)}: "
+              f"{str(e).splitlines()[0]}", flush=True)
+        return None
+
+
 def compare_kernels():
     """Phase 3: each kernel vs its plain version on the card. Returns the
     per-kernel records for the JSON summary."""
@@ -107,71 +378,126 @@ def compare_kernels():
     import torch
 
     from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.dd import limb_gemm as tg
 
     rng = np.random.default_rng(0)
-    recs = {}
-
-    def record(name, route_src, replaces, result, ms, plain_ms, shape):
-        same, err = result
-        r = recs.setdefault(name, dict(
-            name=name, route="cuda", source=route_src, replaces=replaces,
-            launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, shapes=[]))
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["shapes"].append(shape)
-        if shape.get("timed"):
-            r["ms"], r["plain_ms"] = ms, plain_ms
-        print(f"  {name} {shape}: max_abs_err {err} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms", flush=True)
-        if not same:
-            fail(f"{name} differs from its plain version at {shape}: "
-                 f"max_abs_err {err}")
-
-    src = "clrs_tpu_torch/csrc/kernels.cu"
-    PL = "clrs_tpu/dd/pallas_linalg.py"
-    # limb extraction: Schur-sized and panel-sized operands, both sides
+    ks = Kernels()
+    PL = Kernels.PL
+    rep_ext = f"{PL}:667 (_extract_call)"
+    # limb extraction: Schur-sized and panel-sized operands, both sides, the
+    # limb-major layout of the fused route and the GEMM layouts of the split
     for nw, (B, d0, d1), timed in ((5, (2, 22, 22), False),
                                    (5, (4, 192, 64), True),
-                                   (8, (2, 96, 96), False)):
+                                   (8, (2, 96, 96), False),
+                                   (8, (4, 22, 11), False)):
         L, _ = K.limb_params(nw)
         w = _words(rng, (B, d0, d1), nw, scale_rows=True)
         for side in ("a", "b"):
-            res = _compare(K.limb_extract(w, L, side),
-                           K.limb_extract_plain(w, L, side))
-            t = timed and side == "a"
-            ms = time_ms(lambda: K.limb_extract(w, L, side)) if t else 0.0
-            pms = time_ms(lambda: K.limb_extract_plain(w, L, side)) if t else 0.0
-            record("limb_extract", src, f"{PL}:667 (_extract_call)", res, ms,
-                   pms, dict(nw=nw, B=B, d0=d0, d1=d1, side=side, timed=t))
-    # fused limb GEMM (with extraction of both operands)
+            for layout in ("limb", "gemm"):
+                t = timed and (side, layout) in (("a", "limb"), ("b", "gemm"))
+                ks.check("limb_extract", rep_ext, K.limb_extract,
+                         K.limb_extract_plain, (w, L, side, layout),
+                         dict(nw=nw, B=B, d0=d0, d1=d1, side=side,
+                              layout=layout),
+                         cost_extract(nw, L, B, d0, d1, side) if t else None)
+    # fused limb GEMM (operands extracted by the plain version)
     for nw, (B, m, k, n), timed in ((5, (4, 22, 22, 22), False),
                                     (5, (2, 192, 64, 192), True),
                                     (8, (2, 40, 33, 17), False)):
-        L, _ = K.limb_params(nw)
+        L, ndiag = K.limb_params(nw)
         a = _words(rng, (B, m, k), nw, scale_rows=True)
         b = _words(rng, (B, k, n), nw)
         A3, ea = K.limb_extract_plain(a, L, "a")
         B3, eb = K.limb_extract_plain(b, L, "b")
         eab = (ea + eb).expand(B, m, n).contiguous()
-        res = _compare(K.limb_gemm(A3, B3, eab, nw),
-                       K.limb_gemm_plain(A3, B3, eab, nw))
-        ms = time_ms(lambda: K.limb_gemm(A3, B3, eab, nw)) if timed else 0.0
-        pms = time_ms(lambda: K.limb_gemm_plain(A3, B3, eab, nw)) if timed else 0.0
-        record("limb_gemm", src, f"{PL}:552 (_limb_gemm_fused_call)", res, ms,
-               pms, dict(nw=nw, B=B, m=m, k=k, n=n, timed=timed))
+        ks.check("limb_gemm", f"{PL}:552 (_limb_gemm_fused_call)",
+                 K.limb_gemm, K.limb_gemm_plain, (A3, B3, eab, nw),
+                 dict(nw=nw, B=B, m=m, k=k, n=n),
+                 cost_limb_gemm(nw, L, ndiag, B, m, k, n) if timed else None)
+    # the split route: int8 product C and the cascade from C, at a C within
+    # the JAX route threshold (the Schur pairs of delsarte(3,10);
+    # pl_cascade_tiles there) and above it with m, n no multiple of any tile
+    # size (pl_cascade_tiles_grid there); then from diagonals
+    for nw, (B, m, k, n), timed in ((5, (4, 22, 11, 22), True),
+                                    (8, (4, 22, 11, 22), False),
+                                    (5, (1, 100, 37, 130), True),
+                                    (8, (1, 75, 29, 61), False)):
+        L, ndiag = K.limb_params(nw)
+        a = _words(rng, (B, m, k), nw, scale_rows=True)
+        b = _words(rng, (B, k, n), nw)
+        A2, ea = K.limb_extract_plain(a, L, "a", "gemm")
+        B2, eb = K.limb_extract_plain(b, L, "b", "gemm")
+        eab = (ea + eb).expand(B, m, n).contiguous()
+        shape = dict(nw=nw, B=B, m=m, k=k, n=n,
+                     C_MiB=round((L * m) * (L * n) * 4 / 2 ** 20, 3))
+        ks.check("int8_gemm", "clrs_tpu/dd/limb_gemm.py:307 (XLA int8 "
+                 "dot_general, not Pallas)", K.int8_gemm, K.int8_gemm_plain,
+                 (A2, B2), shape)
+        if timed:      # one batch element, the library call's inputs
+            A1, B1 = A2[:1].contiguous(), B2[:1].contiguous()
+            ks.check("int8_gemm", "", K.int8_gemm, K.int8_gemm_plain,
+                     (A1, B1), dict(shape, B=1),
+                     cost_int8_gemm(1, L * m, k, L * n),
+                     library=lambda: _int_mm_ms(A1, B1))
+        C = K.int8_gemm_plain(A2, B2)
+        ks.check("cascade_from_c", f"{PL}:420 (_cascade_tiles_call); "
+                 f"{PL}:469 (_cascade_tiles_grid_call)", K.cascade_from_c,
+                 K.cascade_from_c_plain, (C, eab, nw), shape,
+                 cost_cascade(nw, L, ndiag, B, m, n, True) if timed else None)
+        diags = torch.stack(K._diags_from_c(C, L, m, n, ndiag), 1).contiguous()
+        ks.check("cascade_from_diags", f"{PL}:370 (_cascade_call)",
+                 K.cascade_from_diags, K.cascade_from_diags_plain,
+                 (diags, eab, nw), shape,
+                 cost_cascade(nw, L, ndiag, B, m, n, False) if timed else None)
+        # the split route against the fused route on the same operands
+        same, err = _compare(tg.fx_matmul(a, b, route="split"),
+                             tg.fx_matmul(a, b, route="fused"))
+        print(f"  fx_matmul split vs fused {shape}: max_abs_err {err}",
+              flush=True)
+        if not same:
+            fail(f"fx_matmul split and fused routes differ at {shape}")
+    # the three chains: the class shapes of delsarte(3,10) and (3,95)
+    for nw, (L, n), timed in ((5, (2, 11), False), (5, (2, 96), True),
+                              (8, (2, 11), False), (8, (2, 96), False)):
+        x = _words(rng, (L, n, n), nw)
+        d = _words(rng, (L, n, n), nw)
+        mu = tuple(c.expand(L, 1, 1) for c in
+                   _split(np.asarray([[[rng.random() * 1e3]]]), nw))
+        alpha = tuple(c.expand(L, 1, 1) for c in
+                      _split(np.asarray([[[0.9130357142857143]]]), 3))
+        mask = torch.ones((L, n, n), device="cuda")
+        mask[-1, -1, :] = 0.0
+        mask[-1, :, -1] = 0.0
+        shape = dict(nw=nw, L=L, n=n)
+        add, mul, el = exp_add_ops(nw), exp_mul_ops(nw), L * n * n
+        ks.check("plmap_add", "clrs_tpu/solver/step.py:1561 (pl_map, "
+                 f"{PL}:738)", K.plmap_add, K.plmap_add_plain, (x, d), shape,
+                 cost_plmap((x, d), nw, el, add) if timed else None)
+        ks.check("plmap_add", "", K.plmap_add, K.plmap_add_plain, (mu, x),
+                 dict(shape, scalar_first=True))
+        ks.check("plmap_axpy", "clrs_tpu/solver/step.py:1255 (pl_map, "
+                 f"{PL}:738)", K.plmap_axpy, K.plmap_axpy_plain,
+                 (x, d, alpha), shape,
+                 cost_plmap((x, d, alpha), nw, el, 1 + mul + add)
+                 if timed else None)
+        ks.check("plmap_residual", "clrs_tpu/solver/step.py:1406 (pl_map, "
+                 f"{PL}:738)", K.plmap_residual, K.plmap_residual_plain,
+                 (mu, mask, x), dict(shape, corr=False))
+        ks.check("plmap_residual", "", K.plmap_residual,
+                 K.plmap_residual_plain, (mu, mask, x, d),
+                 dict(shape, corr=True),
+                 cost_plmap((mu, mask, x, d), nw, el, 2 * nw + 2 * add)
+                 if timed else None)
     # Cholesky: X|Y blocks, Schur-sized and a blocked diagonal block
     for nw, (B, n), timed in ((5, (4, 11), False), (5, (2, 64), True),
-                              (5, (1, 95), False)):
+                              (5, (1, 95), False), (8, (2, 22), False)):
         a = _spd(rng, B, n, nw)
         if B > 1 and n == 11:       # an indefinite member: ok flag false
             a = (a[0].clone(),) + a[1:]
             a[0][1, 3, 3] = -50.0
-        (kl, kok) = K.chol_batched(a)
-        (pl_, pok) = K.chol_plain(a)
-        res = _compare(kl + (kok,), pl_ + (pok,))
-        ms = time_ms(lambda: K.chol_batched(a), reps=3) if timed else 0.0
-        pms = time_ms(lambda: K.chol_plain(a), reps=1) if timed else 0.0
-        record("chol_batched", src, f"{PL}:153 (_chol_call)", res, ms, pms,
-               dict(nw=nw, B=B, n=n, timed=timed))
+        ks.check("chol_batched", f"{PL}:153 (_chol_call)", K.chol_batched,
+                 K.chol_plain, (a,), dict(nw=nw, B=B, n=n),
+                 cost_chol(nw, B, n) if timed else None, reps=3, plain_reps=1)
     # triangular solves, both forms
     for nw, (B, n, m), timed in ((5, (4, 11, 11), False),
                                  (5, (2, 64, 64), True),
@@ -179,36 +505,38 @@ def compare_kernels():
         lw, _ = K.chol_plain(_spd(rng, B, n, nw))
         bw = _words(rng, (B, n, m), nw)
         for trans in (False, True):
-            res = _compare(K.tri_solve_batched(lw, bw, trans),
-                           K.tri_solve_plain(lw, bw, trans))
-            ms = time_ms(lambda: K.tri_solve_batched(lw, bw, trans), reps=3) if timed else 0.0
-            pms = time_ms(lambda: K.tri_solve_plain(lw, bw, trans), reps=1) if timed else 0.0
-            record("tri_solve_batched", src,
-                   f"{PL}:217 (_tril_call); {PL}:272 (_tril_t_call)", res, ms,
-                   pms, dict(nw=nw, B=B, n=n, m=m, trans=trans, timed=timed))
-    return recs
+            ks.check("tri_solve_batched", f"{PL}:217 (_tril_call); "
+                     f"{PL}:272 (_tril_t_call)", K.tri_solve_batched,
+                     K.tri_solve_plain, (lw, bw, trans),
+                     dict(nw=nw, B=B, n=n, m=m, trans=trans),
+                     cost_tri(nw, B, n, m, trans) if timed else None,
+                     reps=3, plain_reps=1)
+    return ks.recs
 
 
-def delsarte_problem(n, d, costheta):
-    """The Delsarte LP bound for spherical codes on the port's API
-    (examples/delsarte.py:15-35)."""
-    import clrs_tpu_torch as api
+# kernels each solve must launch: the split route and the chain kernels
+# at delsarte(3,10); at delsarte(3,95) the fused limb GEMM as well (its
+# Schur pairings exceed the JAX route threshold). cascade<FROM_DIAGS> has
+# no caller in either package (phase 3 holds it against its plain version).
+PATH_3_10 = ("limb_extract", "int8_gemm", "cascade_from_c", "chol_batched",
+             "tri_solve_batched", "plmap_add", "plmap_axpy", "plmap_residual")
+PATH_3_95 = PATH_3_10 + ("limb_gemm",)
 
-    obj = api.Objective(0, {}, {"M": 1})
-    R, x = api.polynomial_ring("x")
-    samples = api.sample_points_chebyshev(2 * d, -1, costheta)
-    basis = api.basis_chebyshev(2 * d, x)
-    sosbasis, samples = api.approximatefekete(basis, samples)
-    gp = api.basis_gegenbauer(2 * d, n, x)
-    psd1 = {("a", k): [[gp[k]]] for k in range(1, 2 * d + 1)}
-    psd1[("SOS", 1)] = api.LowRankMatPol([1], [sosbasis[: d + 1]])
-    psd1[("SOS", 2)] = api.LowRankMatPol([(1 + x) * (costheta - x)],
-                                         [sosbasis[:d]])
-    constr1 = api.Constraint(-1, psd1, {}, samples)
-    psd2 = {("a", k): [[1]] for k in range(1, 2 * d + 1)}
-    psd2["slack"] = [[1]]
-    constr2 = api.Constraint(-1, psd2, {"M": -1})
-    return api.Problem(api.Minimize(obj), [constr1, constr2])
+
+def check_counts(label, counts, required, n_it):
+    """Fail unless every required kernel launched and no plain version ran;
+    print the launches per iteration."""
+    from clrs_tpu_torch.dd import kernels as K
+
+    per_it = {f.__name__: round(counts[f.__name__] / max(n_it, 1), 2)
+              for f in K._COUNTED}
+    print(f"{label}: launches per iteration {per_it}", flush=True)
+    for name in required:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched by the {label} solve")
+    for f in K._PLAIN:
+        if counts[f.__name__] != 0:
+            fail(f"plain version {f.__name__} ran in the {label} solve")
 
 
 def solve_delsarte_3_10():
@@ -217,12 +545,13 @@ def solve_delsarte_3_10():
 
     import clrs_tpu_torch as ct
     from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.examples import delsarte_problem
 
     problem = delsarte_problem(3, 10, Fraction(1, 2))
     iters = []
     K.reset_counts()
     status, dualsol, primalsol, t, code = ct.solvesdp(
-        problem, device="cuda", omega_p=100, omega_d=100,
+        problem, omega_p=100, omega_d=100,
         dual_error_threshold=1e-12, primal_error_threshold=1e-12,
         verbose=False, callback=lambda it, info: iters.append(it))
     torch.cuda.synchronize()
@@ -231,30 +560,27 @@ def solve_delsarte_3_10():
     n_it = len(iters)
     print(f"delsarte(3,10): code {code} status {status!r} objective "
           f"{obj!r} |err| {abs(obj - DELSARTE_3_10):.3e} iterations {n_it} "
-          f"solve {t:.3f} s = {t / max(n_it, 1):.4f} s/iteration; "
-          f"counts {counts}", flush=True)
+          f"solve {t:.3f} s = {t / max(n_it, 1):.4f} s/iteration", flush=True)
     if code != 0 or not ct.optimal(status):
         fail(f"delsarte(3,10) ended with code {code}, status {status!r}")
     if not abs(obj - DELSARTE_3_10) < 1e-9:
         fail(f"delsarte(3,10) objective {obj!r} is not within 1e-9 of "
              f"{DELSARTE_3_10!r}")
-    for f in K._COUNTED:
-        if counts[f.__name__] <= 0:
-            fail(f"kernel {f.__name__} was not launched by the solve")
-    for f in K._PLAIN:
-        if counts[f.__name__] != 0:
-            fail(f"plain version {f.__name__} ran in the solve")
+    check_counts("delsarte(3,10)", counts, PATH_3_10, n_it)
     return counts
 
 
 def delsarte_3_95():
     """Phase 5: three iterations at Schur scale (P = 192: blocked
-    Cholesky and solves, panel-scale GEMMs)."""
+    Cholesky and solves, the fused route for the Schur pairings), counted.
+    Returns the kernels' counts."""
     import math
 
     import torch
 
     import clrs_tpu_torch as ct
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.examples import delsarte_problem
 
     t0 = time.time()
     problem = delsarte_problem(3, 95, Fraction(1, 2))
@@ -267,10 +593,13 @@ def delsarte_3_95():
         marks.append(time.time())
         rows.append(info)
 
+    K.reset_counts()
     status, _, _, t, code = ct.solvesdp(
-        problem, device="cuda", omega_p=100, omega_d=100,
+        problem, omega_p=100, omega_d=100,
         dual_error_threshold=1e-12, primal_error_threshold=1e-12,
         maxiterations=3, verbose=False, callback=cb)
+    torch.cuda.synchronize()
+    counts = K.counts()
     later = [1e3 * (b - a) for a, b in zip(marks[:-1], marks[1:])]
     print(f"delsarte(3,95): host build {t_build:.1f} s; code {code}; "
           f"iterations {len(rows)}; loop {1e3 * t / max(len(rows), 1):.1f} "
@@ -285,6 +614,8 @@ def delsarte_3_95():
         if not (r["ok"] and math.isfinite(r["mu"]) and r["alpha_d"] > 0
                 and r["alpha_p"] > 0):
             fail(f"delsarte(3,95) iteration failed: {r}")
+    check_counts("delsarte(3,95)", counts, PATH_3_95, len(rows))
+    return counts
 
 
 def main():
@@ -299,7 +630,6 @@ def main():
     card = card_line()
     print(card, flush=True)
 
-
     t0 = time.time()
     build.library()
     print(f"build: {time.time() - t0:.1f} s (nvcc "
@@ -310,10 +640,11 @@ def main():
     recs = compare_kernels()
     torch.cuda.synchronize()
 
-    counts = solve_delsarte_3_10()
+    runs = {"delsarte(3,10)": solve_delsarte_3_10(),
+            "delsarte(3,95)": delsarte_3_95()}
     for name, r in recs.items():
-        r["launches"] = counts[name]
-    delsarte_3_95()
+        r["launches_by_run"] = {k: c[name] for k, c in runs.items()}
+        r["launches"] = sum(r["launches_by_run"].values())
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(recs.values())}), flush=True)

@@ -56,12 +56,18 @@ def _declare(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.clrs_error_string.argtypes = [i]
     lib.clrs_error_string.restype = ctypes.c_char_p
-    lib.clrs_limb_extract.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    lib.clrs_limb_extract.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
     lib.clrs_limb_gemm.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.clrs_chol.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.clrs_tri_solve.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.clrs_int8_gemm.argtypes = [vp, vp, vp, i, i, i, i, vp]
+    lib.clrs_cascade.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    lib.clrs_plmap.argtypes = [i, ctypes.POINTER(vp),
+                               ctypes.POINTER(ctypes.c_longlong), vp, i, i,
+                               i, i, vp]
     for fn in (lib.clrs_limb_extract, lib.clrs_limb_gemm, lib.clrs_chol,
-               lib.clrs_tri_solve):
+               lib.clrs_tri_solve, lib.clrs_int8_gemm, lib.clrs_cascade,
+               lib.clrs_plmap):
         fn.restype = i
     return lib
 

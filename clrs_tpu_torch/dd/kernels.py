@@ -1,5 +1,5 @@
-"""The four hand-written CUDA kernels of the f32-expansion IPM, their
-wrappers, their plain PyTorch versions and their launch counters.
+"""The hand-written CUDA kernels of the f32-expansion IPM, their wrappers,
+their plain PyTorch versions and their launch counters.
 
 Each wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches its kernel (built from ``csrc/`` at first use,
@@ -8,15 +8,22 @@ counts kernel launches and ``<plain>.calls`` counts plain-version calls,
 so a run can show which route it took (:func:`reset_counts`,
 :func:`counts`).
 
-| wrapper          | kernel (csrc/kernels.cu)     | replaces (clrs_tpu/dd/pallas_linalg.py)       |
-|------------------|------------------------------|-----------------------------------------------|
-| limb_extract     | limb_extract_{exp,limbs}     | _extract_call / pl_extract ('a3'/'b3')         |
-| limb_gemm        | limb_gemm_fused              | _limb_gemm_fused_call / pl_limb_gemm_fused     |
-| chol_batched     | chol_batched                 | _chol_call / pl_cholesky_b                     |
-| tri_solve_batched| tri_solve_batched<TRANS>     | _tril_call, _tril_t_call / pl_solve_tril(_t)_b |
+| wrapper            | kernel (csrc/kernels.cu)   | replaces (clrs_tpu/dd/pallas_linalg.py)        |
+|--------------------|----------------------------|------------------------------------------------|
+| limb_extract       | limb_extract_{exp,limbs}   | _extract_call / pl_extract (all four layouts)  |
+| limb_gemm          | limb_gemm_fused            | _limb_gemm_fused_call / pl_limb_gemm_fused     |
+| int8_gemm          | int8_gemm                  | the XLA int8 dot_general (limb_gemm.py:307)    |
+| cascade_from_c     | cascade<FROM_C>            | _cascade_tiles(_grid)_call / pl_cascade_tiles(_grid) |
+| cascade_from_diags | cascade<FROM_DIAGS>        | _cascade_call / pl_cascade                     |
+| chol_batched       | chol_batched               | _chol_call / pl_cholesky_b                     |
+| tri_solve_batched  | tri_solve_batched<TRANS>   | _tril_call, _tril_t_call / pl_solve_tril(_t)_b |
+| plmap_add          | plmap_add                  | pl_map, corrector sum (solver/step.py:1556)    |
+| plmap_axpy         | plmap_axpy                 | pl_map, state update (solver/step.py:1244)     |
+| plmap_residual     | plmap_residual<CORR>       | pl_map, residual R (solver/step.py:1387)       |
 
 Operands are word tuples with a leading batch axis, as the JAX kernels'
-[L] grid axis; the kernels take them stacked word-major, [B, nw, ...].
+[L] grid axis; most kernels take them stacked word-major, [B, nw, ...];
+the ``plmap_*`` chains read each word where it lies, through its strides.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from . import ops as O
 
 LIMB_BITS = 7
 KERNEL_NW = (5, 6, 7, 8)   # word counts the CUDA kernels are built for
+_MAX_NW = 8                # csrc/kernels.cu MAX_NW
 
 
 def limb_params(nw):
@@ -132,14 +140,41 @@ def tree_sum_rows(ws):
     return tuple(c[:, root:root + 1] for c in buf)
 
 
+def _pad3(shape):
+    """[L, *dims] (at most two dims) -> [L, D1, D2], the dims padded with
+    leading ones as pl_map pads its blocks to 2-D (pallas_linalg.py:712-723)."""
+    if not 1 <= len(shape) <= 3:
+        raise ValueError(f"pl_map chains take [L] + at most 2 dims, got "
+                         f"{tuple(shape)}")
+    return tuple(shape[:1]) + (1,) * (3 - len(shape)) + tuple(shape[1:])
+
+
+def _as3(c):
+    return c.reshape(_pad3(c.shape))
+
+
+def _chain_shape(ops):
+    """(broadcast [L, D1, D2], output shape [L, *dims]) of pl_map operands:
+    the dims broadcast across all words (a [L, 1, 1] scalar may come
+    first)."""
+    shapes = [c.shape for op in ops for c in op]
+    dims = torch.broadcast_shapes(*(s[1:] for s in shapes))
+    L = torch.broadcast_shapes(*(s[:1] for s in shapes))
+    return _pad3(tuple(L) + tuple(dims)), tuple(L) + tuple(dims)
+
+
 # ---------------------------------------------------------------------------
 # plain versions (CPU tensors; the tests and chip_smoke's comparisons)
 # ---------------------------------------------------------------------------
 
 @_counted_plain
-def limb_extract_plain(words, L, side):
-    """words: nw f32 [B, d0, d1] -> (int8 limbs [B, L, d0, d1], int32 exps
-    [B, d0, 1] for side 'a' (per row) or [B, 1, d1] for side 'b').
+def limb_extract_plain(words, L, side, layout="limb"):
+    """words: nw f32 [B, d0, d1] -> (int8 limbs, int32 exps [B, d0, 1] for
+    side 'a' (per row) or [B, 1, d1] for side 'b' (per column)).
+
+    ``layout="limb"``: limbs [B, L, d0, d1] (pl_extract 'a3'/'b3');
+    ``layout="gemm"``: the GEMM operands of the split route, [B, L d0, d1]
+    for side 'a' and [B, d0, L d1] for side 'b' (pl_extract 'a'/'b').
 
     clrs_tpu/dd/limb_gemm.py:_row_exp_f32 + mul_pow2_f32 + _extract_limbs:
     per-row/column power-of-two scaling from max|word0| so |value| <= 1/2,
@@ -156,7 +191,20 @@ def limb_extract_plain(words, L, side):
         d = torch.round(ws[0])                      # round half to even
         ws[0] = ws[0] - d
         limbs.append(d.to(torch.int8))
-    return torch.stack(limbs, dim=1), e
+    limbs = torch.stack(limbs, dim=1)
+    return _layout(limbs, side, layout), e
+
+
+def _layout(limbs, side, layout):
+    """Limb-major [B, L, d0, d1] -> the requested layout."""
+    if layout == "limb":
+        return limbs
+    if layout != "gemm":
+        raise ValueError(f"layout must be 'limb' or 'gemm', got {layout!r}")
+    Bt, L, d0, d1 = limbs.shape
+    if side == "a":
+        return limbs.reshape(Bt, L * d0, d1)
+    return limbs.permute(0, 2, 1, 3).reshape(Bt, d0, L * d1)
 
 
 def _cascade(diags, eab, nw):
@@ -181,27 +229,102 @@ def _cascade(diags, eab, nw):
     return tuple(out)
 
 
-@_counted_plain
-def limb_gemm_plain(a3, b3, eab, nw):
-    """a3 int8 [B, L, m, k], b3 int8 [B, L, k, n], eab int32 [B, m, n] ->
-    nw f32 words [B, m, n]. The limb products run as ONE float64 batched
-    GEMM, exact: every partial sum is an integer below 2^53 (limbs <= 65,
-    k <= 2^13). Diagonal sums D[d] = sum_{ta+tb=d} A[ta] B[tb] are then
-    exact int32, as in the int8 MXU path."""
-    Bt, L, m, k = a3.shape
-    n = b3.shape[3]
-    _, ndiag = limb_params(nw)
-    A = a3.to(torch.float64).reshape(Bt, L * m, k)
-    Bm = b3.to(torch.float64).permute(0, 2, 1, 3).reshape(Bt, k, L * n)
-    C = torch.bmm(A, Bm).view(Bt, L, m, L, n)
+def _int8_product(a, b):
+    """Exact int32 batched product of int8 [B, M, K] and [B, K, N]: one
+    float64 GEMM, whose partial sums are integers below 2^53."""
+    return torch.bmm(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+
+
+def _diags_from_c(C, L, m, n, ndiag):
+    """int32 diagonal sums D[d] = sum_{ta+tb=d} C[ta m:(ta+1) m,
+    tb n:(tb+1) n] of C [B, L m, L n] (exact int32 adds)."""
+    C5 = C.reshape(C.shape[0], L, m, L, n)
     diags = []
     for d in range(ndiag):
         acc = None
         for ta in range(max(0, d - (L - 1)), min(d, L - 1) + 1):
-            t = C[:, ta, :, d - ta, :]
+            t = C5[:, ta, :, d - ta, :]
             acc = t if acc is None else acc + t
-        diags.append(acc.to(torch.int32))
-    return _cascade(diags, eab, nw)
+        diags.append(acc)
+    return diags
+
+
+@_counted_plain
+def limb_gemm_plain(a3, b3, eab, nw):
+    """a3 int8 [B, L, m, k], b3 int8 [B, L, k, n], eab int32 [B, m, n] ->
+    nw f32 words [B, m, n]. The limb products run as ONE exact GEMM
+    (limbs <= 65, k <= 2^13); diagonal sums D[d] = sum_{ta+tb=d} A[ta]
+    B[tb] are then exact int32, as in the int8 MXU path."""
+    Bt, L, m, k = a3.shape
+    n = b3.shape[3]
+    _, ndiag = limb_params(nw)
+    C = _int8_product(a3.reshape(Bt, L * m, k),
+                      b3.permute(0, 2, 1, 3).reshape(Bt, k, L * n))
+    return _cascade(_diags_from_c(C, L, m, n, ndiag), eab, nw)
+
+
+@_counted_plain
+def int8_gemm_plain(a, b):
+    """int8 [B, M, K] @ int8 [B, K, N] -> exact int32 [B, M, N]."""
+    return _int8_product(a, b)
+
+
+@_counted_plain
+def cascade_from_c_plain(C, eab, nw):
+    """C int32 [B, L m, L n] (limb-major row and column blocks), eab int32
+    [B, m, n] -> nw f32 words [B, m, n] (pl_cascade_tiles(_grid))."""
+    L, ndiag = limb_params(nw)
+    m, n = C.shape[1] // L, C.shape[2] // L
+    return _cascade(_diags_from_c(C, L, m, n, ndiag), eab, nw)
+
+
+@_counted_plain
+def cascade_from_diags_plain(diags, eab, nw):
+    """diags int32 [B, ndiag, m, n], eab int32 [B, m, n] -> nw f32 words
+    [B, m, n] (pl_cascade)."""
+    return _cascade(list(diags.unbind(1)), eab, nw)
+
+
+def _full(res, shape3, out_shape):
+    return tuple(c.expand(shape3).reshape(out_shape) for c in res)
+
+
+@_counted_plain
+def plmap_add_plain(x, d):
+    """exp_add(x, d) over [L, *dims] words with pl_map's broadcasting
+    (the corrector sum X + dX, clrs_tpu/solver/step.py:1556-1568)."""
+    shape3, out_shape = _chain_shape([x, d])
+    x, d = (tuple(_as3(c) for c in op) for op in (x, d))
+    return _full(O.exp_add(x, d), shape3, out_shape)
+
+
+@_counted_plain
+def plmap_axpy_plain(x, d, a):
+    """X + alpha dX with alpha as three words (``a``, typically [L, 1, 1])
+    padded to nw by a[0] * 0, the fused form of
+    clrs_tpu/solver/step.py:1248-1255."""
+    shape3, out_shape = _chain_shape([x, d, a])
+    x, d, a = (tuple(_as3(c) for c in op) for op in (x, d, a))
+    z = a[0] * 0.0
+    af = tuple(a) + (z,) * (len(x) - len(a))
+    return _full(O.exp_add(x, O.exp_mul(d, af)), shape3, out_shape)
+
+
+@_counted_plain
+def plmap_residual_plain(mu, mask, xy, dxdy=None):
+    """R = mask (mu I - XY [- dX dY]) with mu I formed word by word as
+    mu * eye (clrs_tpu/solver/step.py:1391-1406); ``mask`` is one f32
+    tensor, ``mu`` words are typically [L, 1, 1]."""
+    ops = [mu, (mask,), xy] + ([dxdy] if dxdy is not None else [])
+    shape3, out_shape = _chain_shape(ops)
+    if shape3[1] != shape3[2]:
+        raise ValueError(f"residual chain needs square blocks, got {shape3}")
+    mu, (mask,), xy = (tuple(_as3(c) for c in op) for op in ops[:3])
+    eye = torch.eye(shape3[2], dtype=torch.float32, device=xy[0].device)
+    r = O.exp_sub(tuple(mw * eye for mw in mu), xy)
+    if dxdy is not None:
+        r = O.exp_sub(r, tuple(_as3(c) for c in dxdy))
+    return _full(tuple(c * mask for c in r), shape3, out_shape)
 
 
 def _one_like(w0, nw):
@@ -291,7 +414,10 @@ def tri_solve_plain(l, b, trans=False):
     return tuple(x)
 
 
-_PLAIN = (limb_extract_plain, limb_gemm_plain, chol_plain, tri_solve_plain)
+_PLAIN = (limb_extract_plain, limb_gemm_plain, int8_gemm_plain,
+          cascade_from_c_plain, cascade_from_diags_plain, chol_plain,
+          tri_solve_plain, plmap_add_plain, plmap_axpy_plain,
+          plmap_residual_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -315,16 +441,29 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _check_words(words, name):
-    nw = len(words)
+def _check_nw(nw, name):
     if nw not in KERNEL_NW:
         raise ValueError(f"{name}: CUDA kernels are built for nw in "
                          f"{KERNEL_NW}, got {nw}")
+
+
+def _check_words(words, name):
+    _check_nw(len(words), name)
     for c in words:
         if c.dtype != torch.float32 or not c.is_cuda:
             raise ValueError(f"{name}: words must be float32 CUDA tensors")
         if c.shape != words[0].shape or c.device != words[0].device:
             raise ValueError(f"{name}: words differ in shape or device")
+
+
+def _check_int(name, *pairs):
+    """Each (tensor, dtype, shape) must be a CUDA tensor of that dtype and
+    shape."""
+    for t, dtype, shape in pairs:
+        if t.dtype != dtype or not t.is_cuda or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected a {dtype} CUDA tensor of "
+                             f"shape {tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def _stack(words):
@@ -347,13 +486,15 @@ def _cuda_error_name(rc):
     return library().clrs_error_string(rc).decode()
 
 
-def limb_extract(words, L, side):
+def limb_extract(words, L, side, layout="limb"):
     """Scaled L-limb int8 form of nw f32 words [B, d0, d1]; see
-    :func:`limb_extract_plain` for the contract."""
+    :func:`limb_extract_plain` for the contract and the layouts."""
     if side not in ("a", "b"):
         raise ValueError(side)
+    if layout not in ("limb", "gemm"):
+        raise ValueError(f"layout must be 'limb' or 'gemm', got {layout!r}")
     if not _route(words[0]):
-        return limb_extract_plain(words, L, side)
+        return limb_extract_plain(words, L, side, layout)
     from .build import library
 
     _check_words(words, "limb_extract")
@@ -361,13 +502,18 @@ def limb_extract(words, L, side):
     Bt, nw, d0, d1 = W.shape
     if L != limb_params(nw)[0]:
         raise ValueError(f"limb_extract: L={L} does not match nw={nw}")
-    limbs = torch.empty((Bt, L, d0, d1), dtype=torch.int8, device=W.device)
+    b_gemm = side == "b" and layout == "gemm"
+    lshape = (Bt, d0, L * d1) if b_gemm else (Bt, L, d0, d1)
+    limbs = torch.empty(lshape, dtype=torch.int8, device=W.device)
     eshape = (Bt, d0, 1) if side == "a" else (Bt, 1, d1)
     e = torch.empty(eshape, dtype=torch.int32, device=W.device)
     rc = library().clrs_limb_extract(_ptr(W), _ptr(limbs), _ptr(e), Bt, nw,
-                                     d0, d1, int(side == "a"), _stream())
+                                     d0, d1, int(side == "a"), int(b_gemm),
+                                     _stream())
     _launched(rc, "limb_extract")
     limb_extract.launches += 1
+    if side == "a" and layout == "gemm":
+        limbs = limbs.view(Bt, L * d0, d1)
     return limbs, e
 
 
@@ -378,9 +524,7 @@ def limb_gemm(a3, b3, eab, nw):
         return limb_gemm_plain(a3, b3, eab, nw)
     from .build import library
 
-    if nw not in KERNEL_NW:
-        raise ValueError(f"limb_gemm: kernels are built for nw in "
-                         f"{KERNEL_NW}, got {nw}")
+    _check_nw(nw, "limb_gemm")
     L, _ = limb_params(nw)
     Bt, La, m, k = a3.shape
     n = b3.shape[3]
@@ -397,6 +541,144 @@ def limb_gemm(a3, b3, eab, nw):
     _launched(rc, "limb_gemm")
     limb_gemm.launches += 1
     return _unstack(out)
+
+
+def int8_gemm(a, b):
+    """Exact int32 product of int8 [B, M, K] and [B, K, N]; see
+    :func:`int8_gemm_plain`."""
+    if not _route(a):
+        return int8_gemm_plain(a, b)
+    from .build import library
+
+    Bt, M, K = a.shape
+    N = b.shape[2]
+    _check_int("int8_gemm", (a, torch.int8, (Bt, M, K)),
+               (b, torch.int8, (Bt, K, N)))
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((Bt, M, N), dtype=torch.int32, device=a.device)
+    rc = library().clrs_int8_gemm(_ptr(a), _ptr(b), _ptr(c), Bt, M, K, N,
+                                  _stream())
+    _launched(rc, "int8_gemm")
+    int8_gemm.launches += 1
+    return c
+
+
+def _cascade_launch(src, eab, nw, m, n, from_c, name):
+    from .build import library
+
+    Bt = src.shape[0]
+    src, eab = src.contiguous(), eab.contiguous()
+    out = torch.empty((Bt, nw, m, n), dtype=torch.float32, device=src.device)
+    rc = library().clrs_cascade(_ptr(src), _ptr(eab), _ptr(out), Bt, m, n,
+                                nw, int(from_c), _stream())
+    _launched(rc, name)
+    return _unstack(out)
+
+
+def cascade_from_c(C, eab, nw):
+    """nw f32 words [B, m, n] from the int8 product C [B, L m, L n]; see
+    :func:`cascade_from_c_plain`."""
+    if not _route(C):
+        return cascade_from_c_plain(C, eab, nw)
+    _check_nw(nw, "cascade_from_c")
+    L, _ = limb_params(nw)
+    Bt, LM, LN = C.shape
+    if LM % L or LN % L:
+        raise ValueError(f"cascade_from_c: C {tuple(C.shape)} is not in "
+                         f"{L}-limb blocks")
+    m, n = LM // L, LN // L
+    _check_int("cascade_from_c", (C, torch.int32, (Bt, LM, LN)),
+               (eab, torch.int32, (Bt, m, n)))
+    out = _cascade_launch(C, eab, nw, m, n, True, "cascade_from_c")
+    cascade_from_c.launches += 1
+    return out
+
+
+def cascade_from_diags(diags, eab, nw):
+    """nw f32 words [B, m, n] from diagonal sums [B, ndiag, m, n]; see
+    :func:`cascade_from_diags_plain`."""
+    if not _route(diags):
+        return cascade_from_diags_plain(diags, eab, nw)
+    _check_nw(nw, "cascade_from_diags")
+    _, ndiag = limb_params(nw)
+    Bt, nd, m, n = diags.shape
+    _check_int("cascade_from_diags", (diags, torch.int32, (Bt, ndiag, m, n)),
+               (eab, torch.int32, (Bt, m, n)))
+    out = _cascade_launch(diags, eab, nw, m, n, False, "cascade_from_diags")
+    cascade_from_diags.launches += 1
+    return out
+
+
+_PLMAP_FN = {"add": 0, "axpy": 1, "residual": 2, "residual_corr": 3}
+
+
+def _plmap_launch(fn, ops, nws, name):
+    """Launch one chain kernel on operands ``ops`` (word tuples, word counts
+    ``nws``); every word is passed where it lies, with its strides over the
+    broadcast [L, D1, D2] shape. Returns the output words [L, *dims]."""
+    from .build import library
+
+    nw = nws[0]
+    _check_nw(nw, name)
+    shape3, out_shape = _chain_shape(ops)
+    dev = ops[0][0].device
+    ptrs = (ctypes.c_void_p * (4 * _MAX_NW))()
+    strides = (ctypes.c_longlong * (4 * _MAX_NW * 3))()
+    keep = []
+    for k, (op, nwk) in enumerate(zip(ops, nws)):
+        if len(op) != nwk:
+            raise ValueError(f"{name}: operand {k} has {len(op)} words, "
+                             f"expected {nwk}")
+        for w, c in enumerate(op):
+            if c.dtype != torch.float32 or c.device != dev:
+                raise ValueError(f"{name}: words must be float32 tensors "
+                                 f"on {dev}, got {c.dtype} on {c.device}")
+            c3 = _as3(c).expand(shape3)
+            keep.append(c3)
+            ptrs[k * _MAX_NW + w] = c3.data_ptr()
+            for a, s in enumerate(c3.stride()):
+                strides[(k * _MAX_NW + w) * 3 + a] = s
+    out = torch.empty((nw,) + shape3, dtype=torch.float32, device=dev)
+    rc = library().clrs_plmap(_PLMAP_FN[fn], ptrs, strides, _ptr(out),
+                              *shape3, nw, _stream())
+    _launched(rc, name)
+    return tuple(out[k].view(out_shape) for k in range(nw))
+
+
+def plmap_add(x, d):
+    """X + dX as one kernel; see :func:`plmap_add_plain`."""
+    if not _route(x[0]):
+        return plmap_add_plain(x, d)
+    out = _plmap_launch("add", [x, d], [len(x), len(x)], "plmap_add")
+    plmap_add.launches += 1
+    return out
+
+
+def plmap_axpy(x, d, a):
+    """X + alpha dX as one kernel; see :func:`plmap_axpy_plain`."""
+    if not _route(x[0]):
+        return plmap_axpy_plain(x, d, a)
+    out = _plmap_launch("axpy", [x, d, a], [len(x), len(x), 3], "plmap_axpy")
+    plmap_axpy.launches += 1
+    return out
+
+
+def plmap_residual(mu, mask, xy, dxdy=None):
+    """mask (mu I - XY [- dX dY]) as one kernel; see
+    :func:`plmap_residual_plain`."""
+    if not _route(xy[0]):
+        return plmap_residual_plain(mu, mask, xy, dxdy)
+    nw = len(xy)
+    ops = [mu, (mask,), xy]
+    if dxdy is not None:
+        ops.append(dxdy)
+    shape3, _ = _chain_shape(ops)
+    if shape3[1] != shape3[2]:
+        raise ValueError(f"plmap_residual: square blocks only, got {shape3}")
+    out = _plmap_launch("residual" if dxdy is None else "residual_corr", ops,
+                        [nw, 1, nw, nw][:len(ops)], "plmap_residual")
+    plmap_residual.launches += 1
+    return out
 
 
 def chol_batched(a):
@@ -442,6 +724,8 @@ def tri_solve_batched(l, b, trans=False):
     return _unstack(x)
 
 
-_COUNTED = (limb_extract, limb_gemm, chol_batched, tri_solve_batched)
+_COUNTED = (limb_extract, limb_gemm, int8_gemm, cascade_from_c,
+            cascade_from_diags, chol_batched, tri_solve_batched, plmap_add,
+            plmap_axpy, plmap_residual)
 for _f in _COUNTED:
     _f.launches = 0

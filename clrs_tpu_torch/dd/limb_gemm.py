@@ -1,12 +1,20 @@
 """Exact GEMM of f32 expansions through int8 limbs (batched).
 
-Port of ``clrs_tpu/dd/limb_gemm.py::fx_matmul`` in its fused form: each
-operand is scaled per row (A) or per column (B) by a power of two so its
-value lies in [-1/2, 1/2], cut into L 7-bit limbs in [-65, 65]
-(:func:`.kernels.limb_extract`), and the limb products are summed per
-significance diagonal and cascaded into nw f32 words
-(:func:`.kernels.limb_gemm`). Every step is exact IEEE f32, int8 or int32
-arithmetic; the only losses are the final nw-word rounding and the
+Port of ``clrs_tpu/dd/limb_gemm.py::fx_matmul`` with the JAX package's TPU
+routing: each operand is scaled per row (A) or per column (B) by a power
+of two so its value lies in [-1/2, 1/2], cut into L 7-bit limbs in
+[-65, 65] (:func:`.kernels.limb_extract`), and the limb products are summed
+per significance diagonal and cascaded into nw f32 words, on one of two
+routes:
+
+- **fused** (:func:`.kernels.limb_gemm`): products, diagonal sums and
+  cascade in one kernel, so the int32 product never exists in memory;
+- **split**: limbs in the GEMM layouts, one int8 GEMM for the whole int32
+  product C [B, L m, L n] (:func:`.kernels.int8_gemm`), then the diagonal
+  sums and cascade from C (:func:`.kernels.cascade_from_c`).
+
+Every step is exact IEEE f32, int8 or int32 arithmetic, so both routes give
+the same words; the only losses are the final nw-word rounding and the
 truncation below 2^-(24 nw + 21) of rowscale(A) * colscale(B).
 
 The leading batch axis is written out: it replaces every
@@ -25,14 +33,47 @@ LIMB_BITS = K.LIMB_BITS
 # terms, <= L <= 48 tiles per diagonal
 MAX_K_EXACT = 1 << 13
 
+# The JAX package's route threshold on the int32 product C, in bytes
+# (clrs_tpu/dd/limb_gemm.py:52, _PLCASCADE_C_BUDGET). It reproduces the
+# TPU package's routing, a budget of the TPU's VMEM; it is not a limit of
+# the H100's memory.
+JAX_ROUTE_C_BYTES = 6 << 20
 
-def fx_matmul(a, b, nw=None, pre_a=None, pre_b=None):
+
+def _jax_fused_tiling_exists(m, n, L, k, budget=JAX_ROUTE_C_BYTES):
+    """Whether clrs_tpu's fused kernel has a tiling for this GEMM
+    (pallas_linalg.py:571-587, _fused_tile_sizes is not None)."""
+    tn = 128 if n >= 128 else n
+    tm = 8 if m >= 8 else m
+    while tm >= 8 and tm * 2 <= min(128, m):
+        tm *= 2
+
+    def fp(tm, tn):
+        return L * tm * k + L * k * tn + 11 * tm * tn * 4
+
+    while fp(tm, tn) > budget and tm > 8:
+        tm //= 2
+    return fp(tm, tn) <= budget
+
+
+def gemm_route(m, k, n, nw):
+    """'fused' or 'split': the route clrs_tpu's fx_matmul takes on the TPU
+    for an [m, k] @ [k, n] product of nw words (limb_gemm.py:243-331)."""
+    L, _ = K.limb_params(nw)
+    if ((L * m) * (L * n) * 4 > JAX_ROUTE_C_BYTES
+            and _jax_fused_tiling_exists(m, n, L, k)):
+        return "fused"
+    return "split"
+
+
+def fx_matmul(a, b, nw=None, pre_a=None, pre_b=None, route=None):
     """Batched f32-expansion GEMM [B, m, k] @ [B, k, n] -> nw words [B, m, n].
 
     ``pre_a``/``pre_b`` = (int8 limbs [B, L, m, k] / [B, L, k, n], int32
     exps [B, m, 1] / [B, 1, n]) from :func:`host_precompute` (moved to the
     device) skip that operand's scaling and extraction; nw must then be
-    given."""
+    given. ``route`` ('fused' or 'split') overrides :func:`gemm_route`;
+    both give the same words."""
     nw = nw or len(a if a is not None else b)
     if pre_a is None:
         Bt, m, k = a[0].shape
@@ -48,19 +89,31 @@ def fx_matmul(a, b, nw=None, pre_a=None, pre_b=None):
     if L > 48 or k > MAX_K_EXACT:
         raise ValueError(f"fx_matmul: L={L} > 48 or k={k} > {MAX_K_EXACT} "
                          "would overflow the exact int32 diagonal sums")
+    for pre in (pre_a, pre_b):
+        if pre is not None and pre[0].shape[1] != L:
+            raise ValueError(f"fx_matmul: limb count {pre[0].shape[1]} does "
+                             f"not match nw={nw} (L={L})")
+    route = route or gemm_route(m, k, n, nw)
+    if route == "fused":
+        A3, ea = K.limb_extract(a, L, "a") if pre_a is None else pre_a
+        B3, eb = K.limb_extract(b, L, "b") if pre_b is None else pre_b
+        eab = (ea + eb).expand(Bt, m, n).contiguous()
+        return K.limb_gemm(A3, B3, eab, nw)
+    if route != "split":
+        raise ValueError(f"route must be 'fused' or 'split', got {route!r}")
     if pre_a is None:
-        A3, ea = K.limb_extract(a, L, "a")
+        A2, ea = K.limb_extract(a, L, "a", layout="gemm")    # [B, L m, k]
     else:
-        A3, ea = pre_a
+        A2, ea = pre_a[0].reshape(Bt, L * m, k), pre_a[1]
     if pre_b is None:
-        B3, eb = K.limb_extract(b, L, "b")
+        B2, eb = K.limb_extract(b, L, "b", layout="gemm")    # [B, k, L n]
     else:
-        B3, eb = pre_b
-    if A3.shape[1] != L or B3.shape[1] != L:
-        raise ValueError(f"fx_matmul: limb counts {A3.shape[1]}/"
-                         f"{B3.shape[1]} do not match nw={nw} (L={L})")
+        # limb-major [B, L, k, n] -> [B, k, L n] (limb_gemm.py:303)
+        B2 = pre_b[0].permute(0, 2, 1, 3).reshape(Bt, k, L * n)
+        eb = pre_b[1]
+    C = K.int8_gemm(A2, B2)
     eab = (ea + eb).expand(Bt, m, n).contiguous()
-    return K.limb_gemm(A3, B3, eab, nw)
+    return K.cascade_from_c(C, eab, nw)
 
 
 # ---------------------------------------------------------------------------

@@ -19,15 +19,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
-from ..host.compile.sdp import ClusteredLowRankSDP
-from ..host.dd.core import dd_add_f64 as _host_dd_add
-from ..host.model.problem import Block, Problem
-from ..host.solver.status import (DualFeasible, DualSolution, Feasible,
-                                  NearOptimal, NotConverged, Optimal,
-                                  PrimalFeasible, PrimalSolution)
-from ..host.utils.hp import DDScalar
+from ..compile.sdp import ClusteredLowRankSDP
+from ..dd.core import dd_add_f64 as _host_dd_add
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..model.problem import Block, Problem
 from ..state import state_to_numpy
+from ..utils.hp import DDScalar
+from .status import (DualFeasible, DualSolution, Feasible, NearOptimal,
+                     NotConverged, Optimal, PrimalFeasible, PrimalSolution)
 from .step import DeviceSDP, _w, initial_state, make_assess, make_step_body
 
 __all__ = ["solvesdp", "SolverFailure", "SaveSettings", "word_count"]
@@ -77,8 +76,8 @@ def _info_to_host(info):
     return out
 
 
-def solvesdp(problem, *, device, prec=None, maxiterations=500,
-             beta_infeasible=0.3, beta_feasible=0.1, gamma=0.9,
+def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
+             maxiterations=500, beta_infeasible=0.3, beta_feasible=0.1, gamma=0.9,
              omega_p=1e10, omega_d=1e10,
              duality_gap_threshold=1e-15,
              dual_error_threshold=1e-30, primal_error_threshold=1e-30,
@@ -91,8 +90,10 @@ def solvesdp(problem, *, device, prec=None, maxiterations=500,
              save_settings: Optional[SaveSettings] = None,
              preprocess=True, substrate="f32", mesh=None,
              callback=None):
-    """Solve on ``device`` ("cuda" or "cpu"); returns (status, dualsol,
-    primalsol, solve_time, errorcode).
+    """Solve on ``device`` (the card by default; "cpu" runs the kernels'
+    plain versions); returns (status, dualsol, primalsol, solve_time,
+    errorcode). Without a card, the default raises: nothing falls back to
+    the CPU.
 
     Runs the f32-expansion substrate with nw words (see :func:`word_count`).
     ``substrate="f64"`` and ``mesh=`` are later slices of the port and
@@ -107,12 +108,12 @@ def solvesdp(problem, *, device, prec=None, maxiterations=500,
         sdp = ClusteredLowRankSDP(problem)
     else:
         sdp = problem
-    from ..host.model.checks import remove_empty_blocks
+    from ..model.checks import remove_empty_blocks
     remove_empty_blocks(sdp, verbose=verbose)
     if prec is None:
         prec = getattr(sdp, "prec", None)
     if preprocess:
-        from ..host.compile.preprocess import preprocess_sdp
+        from ..compile.preprocess import preprocess_sdp
         sdp, post = preprocess_sdp(sdp, verbose=verbose)
     else:
         post = None
@@ -363,7 +364,7 @@ def _extract(ds, sdp: ClusteredLowRankSDP, state, post=None):
 
 def _warm_start(ds, sdp, state, dualsol: DualSolution, primalsol: PrimalSolution):
     """Scatter a previous solution back into x, X, y, Y (solver.jl:202-239)."""
-    from ..host.utils.hp import to_dd
+    from ..utils.hp import to_dd
 
     x = [[np.zeros((cl.J, cl.nrows)), np.zeros((cl.J, cl.nrows))]
          for cl in ds.clusters]

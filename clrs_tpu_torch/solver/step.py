@@ -14,9 +14,15 @@ lowest eigenvalue from float64 ``torch.linalg.eigvalsh`` with
 ``eig_safety`` (the JAX package's off-TPU route; the card's f64 is IEEE).
 
 PyTorch runs eagerly: a step is a Python function over device tensors
-(no jit). The elementwise chains are plain expansion ops (the JAX
-``_USE_PLMAP=False`` form). Not ported here: the row-sharded big-cluster
-branches and the on-device multi-iteration loop (``make_run_chunk``).
+(no jit). The step takes the route the JAX package takes on the TPU: every
+GEMM routes as there (:func:`clrs_tpu_torch.dd.limb_gemm.gemm_route`), and
+the three per-class elementwise chains of ``pl_map`` (the residual R, the
+corrector sum X + dX and the state update X + alpha dX) run as one kernel
+each (``plmap_*`` in :mod:`clrs_tpu_torch.dd.kernels`); ``plmap=False``
+gives the JAX ``_USE_PLMAP=False`` form of plain expansion ops instead. The
+scalar-pack parts stay plain ops, as in the JAX package. Not ported here:
+the row-sharded big-cluster branches and the on-device multi-iteration
+loop (``make_run_chunk``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..compile.sdp import ClusteredLowRankSDP
+from ..dd import core as host_core
+from ..dd import kernels as dk
 from ..dd import linalg as dl
 from ..dd.limb_gemm import fx_matmul, host_precompute
 from ..dd.ops import exp_add as dd_add
@@ -35,8 +43,7 @@ from ..dd.ops import exp_div as dd_div
 from ..dd.ops import exp_mul as dd_mul
 from ..dd.ops import exp_neg as dd_neg
 from ..dd.ops import exp_sub as dd_sub
-from ..host.compile.sdp import ClusteredLowRankSDP
-from ..host.dd import core as host_core
+from ..device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["DeviceSDP", "make_step_body", "make_assess", "initial_state",
            "make_run_chunk"]
@@ -75,6 +82,12 @@ def _scalar_split(v, nw):
         r = r - w.to(F64)
     words += [torch.zeros_like(words[0])] * (nw - len(words))
     return tuple(words)
+
+
+def _bcast_words(ws, L):
+    """Scalar expansion -> [L, 1, 1]-broadcast word views for the chain
+    kernels (clrs_tpu/solver/step.py:1232-1236; nothing is copied)."""
+    return tuple(c.reshape(1, 1, 1).expand(L, 1, 1) for c in ws)
 
 
 def _f64sum(x):
@@ -201,7 +214,8 @@ class DeviceSDP:
     expansions on ``device`` (clrs_tpu/solver/step.py:286-621 with
     ``dtype=float32`` and no mesh)."""
 
-    def __init__(self, sdp: ClusteredLowRankSDP, nw: int = 5, device=None):
+    def __init__(self, sdp: ClusteredLowRankSDP, nw: int = 5,
+                 device=DEFAULT_DEVICE):
         self.nw = nw
         self.device = dev = resolve_device(device)
         _dd = lambda a: _w(a, nw, dev)  # noqa: E731
@@ -769,13 +783,22 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, cholX, cholY, gamma,
     return a_d, a_p
 
 
-def _axpy_state(state, dx, dy, dX, dY, dXs, dYs, alpha_d, alpha_p):
+def _axpy_state(state, dx, dy, dX, dY, dXs, dYs, alpha_d, alpha_p,
+                plmap=True):
     nw = len(state["y"])
     ad = _scalar_split(alpha_d, nw)
     ap = _scalar_split(alpha_p, nw)
-    X = [[dd_add(Xb, dd_mul(dXb, ad)) for Xb, dXb in zip(Xc, dXc)]
+    if plmap:
+        # the fused form: alpha as three words, padded inside the kernel
+        # (clrs_tpu/solver/step.py:1244-1260)
+        def fma(Mb, dMb, a):
+            return dk.plmap_axpy(Mb, dMb, _bcast_words(a[:3], Mb[0].shape[0]))
+    else:
+        def fma(Mb, dMb, a):
+            return dd_add(Mb, dd_mul(dMb, a))
+    X = [[fma(Xb, dXb, ad) for Xb, dXb in zip(Xc, dXc)]
          for Xc, dXc in zip(state["X"], dX)]
-    Y = [[dd_add(Yb, dd_mul(dYb, ap)) for Yb, dYb in zip(Yc, dYc)]
+    Y = [[fma(Yb, dYb, ap) for Yb, dYb in zip(Yc, dYc)]
          for Yc, dYc in zip(state["Y"], dY)]
     x = [dd_add(xj, dd_mul(dxj, ad)) for xj, dxj in zip(state["x"], dx)]
     y = dd_add(state["y"], dd_mul(dy, ap))
@@ -809,9 +832,12 @@ def make_assess(ds: DeviceSDP):
 def make_step_body(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                    beta_infeasible: float, dual_error_threshold: float,
                    primal_error_threshold: float, safe_step: bool = True,
-                   correctoronly: bool = False, eig_safety: float = 1e-12):
+                   correctoronly: bool = False, eig_safety: float = 1e-12,
+                   plmap: bool = True):
     """Build the one-iteration function ``step(state, pd_feas_prev) ->
-    (new_state, info)``; info values are device tensors."""
+    (new_state, info)``; info values are device tensors. ``plmap=False``
+    runs the three elementwise chains as plain expansion ops instead of
+    the chain kernels."""
     K = float(ds.total_size)
     nw = ds.nw
     dev = ds.device
@@ -887,11 +913,18 @@ def make_step_body(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             for j, cl in enumerate(ds.clusters):
                 Rc = []
                 for ki, k in enumerate(cl.classes):
+                    dXdY = (None if corr is None
+                            else _bmm(corr[0][j][ki], corr[1][j][ki]))
+                    if plmap:
+                        Rc.append(dk.plmap_residual(
+                            _bcast_words(mu_val, k.L), k.maskd, XYs[j][ki],
+                            dXdY))
+                        continue
                     eye_b = tuple(c.expand(k.L, k.n, k.n)
                                   for c in dl.dd_eye(k.n, nw, dev))
                     Rb = dd_sub(dd_mul(mu_val, eye_b), XYs[j][ki])
-                    if corr is not None:
-                        Rb = dd_sub(Rb, _bmm(corr[0][j][ki], corr[1][j][ki]))
+                    if dXdY is not None:
+                        Rb = dd_sub(Rb, dXdY)
                     Rc.append(_dd_scale(Rb, k.maskd))
                 Rs.append(Rc)
                 if cl.s_nb:
@@ -996,10 +1029,11 @@ def make_step_body(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         dx, dy, dX, dY, dXs, dYs = search_direction(R, R_s)
 
         # corrector mu: r = <X+dX, Y+dY>/(mu K)
+        padd = dk.plmap_add if plmap else dd_add
         sstate = {
-            "X": [[dd_add(a, b) for a, b in zip(Xc, dXc)]
+            "X": [[padd(a, b) for a, b in zip(Xc, dXc)]
                   for Xc, dXc in zip(state["X"], dX)],
-            "Y": [[dd_add(a, b) for a, b in zip(Yc, dYc)]
+            "Y": [[padd(a, b) for a, b in zip(Yc, dYc)]
                   for Yc, dYc in zip(state["Y"], dY)],
             "Xs": [dd_add(a, b) for a, b in zip(state["Xs"], dXs)],
             "Ys": [dd_add(a, b) for a, b in zip(state["Ys"], dYs)],
@@ -1025,7 +1059,7 @@ def make_step_body(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             alpha_d = torch.where(pd_feas_now, a, alpha_d)
 
         new_state = _axpy_state(state, dx, dy, dX, dY, dXs, dYs,
-                                alpha_d, alpha_p)
+                                alpha_d, alpha_p, plmap=plmap)
         d_obj, p_obj, gap = _objectives(ds, new_state)
         info = {
             "mu": _f64sum(mu), "dual_error": dual_error,

@@ -42,6 +42,10 @@ def test_cuda_request_without_card_raises(monkeypatch):
         D.resolve_device("cuda")
     with pytest.raises(RuntimeError):
         ct.solvesdp(None, device="cuda", verbose=False)
+    with pytest.raises(RuntimeError):
+        ct.solvesdp(None, verbose=False)                # the default: cuda
+    with pytest.raises(RuntimeError):
+        TS.DeviceSDP(None)
     assert D.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -75,6 +79,69 @@ def test_kernels_match_plain_on_card(nw, cuda):
     assert all(torch.equal(a, b) for a, b in zip(gk, gp))
 
 
+def _same(xs, ys):
+    return all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw", [5, 6, 7, 8])
+def test_split_route_kernels_match_plain_on_card(nw, cuda):
+    """The split route's kernels (extraction in the GEMM layouts, the int8
+    GEMM, the cascade from C and from diagonals) equal their plain versions
+    bit for bit on the card, with ragged shapes; the split and fused routes
+    of fx_matmul give the same words."""
+    from clrs_tpu_torch.dd import limb_gemm as tg
+
+    rng = np.random.default_rng(20 + nw)
+    L, ndiag = K.limb_params(nw)
+    B, m, k, n = 2, 13, 37, 70
+    a = _t(split_words(rng.standard_normal((B, m, k))
+                       * 10.0 ** rng.integers(-6, 6, (B, m, k)), nw), cuda)
+    b = _t(split_words(rng.standard_normal((B, k, n)), nw), cuda)
+    for side, w in (("a", a), ("b", b)):
+        lk, ek = K.limb_extract(w, L, side, layout="gemm")
+        lp, ep = K.limb_extract_plain(w, L, side, layout="gemm")
+        assert torch.equal(lk, lp) and torch.equal(ek, ep)
+    A2, ea = K.limb_extract_plain(a, L, "a", layout="gemm")
+    B2, eb = K.limb_extract_plain(b, L, "b", layout="gemm")
+    C = K.int8_gemm(A2, B2)
+    assert torch.equal(C, K.int8_gemm_plain(A2, B2))
+    eab = (ea + eb).expand(B, m, n).contiguous()
+    assert _same(K.cascade_from_c(C, eab, nw),
+                 K.cascade_from_c_plain(C, eab, nw))
+    diags = torch.from_numpy(rng.integers(-2 ** 24, 2 ** 24, (B, ndiag, m, n))
+                             .astype(np.int32)).to(cuda)
+    assert _same(K.cascade_from_diags(diags, eab, nw),
+                 K.cascade_from_diags_plain(diags, eab, nw))
+    assert _same(tg.fx_matmul(a, b, route="split"),
+                 tg.fx_matmul(a, b, route="fused"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw", [5, 6, 7, 8])
+def test_chain_kernels_match_plain_on_card(nw, cuda):
+    """plmap_add/axpy/residual equal their plain versions bit for bit on the
+    card, with the [L, 1, 1] scalar first and a batch-broadcast mask."""
+    rng = np.random.default_rng(30 + nw)
+    L, n = 3, 11
+    x = _t(split_words(rng.standard_normal((L, n, n)), nw), cuda)
+    d = _t(split_words(rng.standard_normal((L, n, n)) * 1e-3, nw), cuda)
+    mu = _t(split_words(rng.standard_normal((L, 1, 1)), nw), cuda)
+    alpha = _t(split_words(rng.random((1, 1, 1)), 3), cuda)
+    alpha = tuple(c.expand(L, 1, 1) for c in alpha)
+    mask = torch.ones((n, n), device=cuda)
+    mask[-2:, :] = 0.0
+    mask = mask.expand(L, n, n)
+    assert _same(K.plmap_add(x, d), K.plmap_add_plain(x, d))
+    assert _same(K.plmap_axpy(x, d, alpha), K.plmap_axpy_plain(x, d, alpha))
+    for corr in (None, d):
+        assert _same(K.plmap_residual(mu, mask, x, corr),
+                     K.plmap_residual_plain(mu, mask, x, corr))
+    # scalar first: the output takes the broadcast shape
+    out = K.plmap_add(mu, x)
+    assert out[0].shape == (L, n, n) and _same(out, K.plmap_add_plain(mu, x))
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
     """A CUDA operand the kernels do not take raises; it never runs the
@@ -85,6 +152,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         K.tri_solve_batched(_t(spd_words(1, 4, 5, 0), cuda),
                             _t(split_words(np.ones((1, 4, 2)), 5), "cpu"))
+    x = _t(split_words(np.ones((2, 3, 3)), 3), cuda)
+    with pytest.raises(ValueError):
+        K.plmap_add(x, x)                                  # nw=3: not built
+    with pytest.raises(ValueError):
+        K.int8_gemm(torch.zeros((1, 2, 3), dtype=torch.int8, device=cuda),
+                    torch.zeros((1, 3, 2), dtype=torch.int32, device=cuda))
     assert all(v == 0 for v in K.counts().values())
 
 
@@ -92,9 +165,11 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
 def test_step_on_card_matches_cpu(cuda):
     """Two steps of delsarte(3,3) on the card (kernels) and on the CPU
     (plain versions) agree at rel 1e-13: the expansion words agree bit for
-    bit, the step lengths come from two f64 eigensolvers."""
+    bit, the step lengths come from two f64 eigensolvers. Both take the
+    same route: a kernel launches on the card where its plain version runs
+    on the CPU, and the split route and the chain kernels are among them."""
     sdp = ct.ClusteredLowRankSDP(delsarte(ct, 3))
-    rows = {}
+    rows, routes = {}, {}
     for dev in ("cpu", cuda):
         ds = TS.DeviceSDP(sdp, nw=5, device=dev)
         step = TS.make_step_body(ds, **STEP_KW)
@@ -107,8 +182,17 @@ def test_step_on_card_matches_cpu(cuda):
                                                "alpha_d", "alpha_p")])
         counts = K.counts()
         on_card = dev != "cpu"
-        assert all((counts[f.__name__] > 0) == on_card for f in K._COUNTED)
-        assert all((counts[f.__name__] > 0) != on_card for f in K._PLAIN)
+        # kernel wrapper -> the route it names; its plain version likewise
+        pairs = list(zip(K._COUNTED, K._PLAIN))
+        ran = {f.__name__ for f, p in pairs
+               if counts[(f if on_card else p).__name__] > 0}
+        idle = K._PLAIN if on_card else K._COUNTED
+        assert all(counts[f.__name__] == 0 for f in idle)
+        routes[on_card] = ran
         rows[on_card] = r
+    assert routes[True] == routes[False]
+    assert {"int8_gemm", "cascade_from_c", "plmap_add", "plmap_axpy",
+            "plmap_residual", "chol_batched", "tri_solve_batched",
+            "limb_extract"} <= routes[True]
     for a, b in zip(rows[False], rows[True]):
         assert a == pytest.approx(b, rel=1e-13, abs=1e-18)
