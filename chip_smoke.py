@@ -349,6 +349,9 @@ class Kernels:
                  f"max_abs_err {err}")
 
 
+INT8_REPS = 50   # int8_gemm and torch._int_mm differ by under 1 us per call
+
+
 def _int_mm_ms(A, B):
     """Time of torch._int_mm on the same int8 operands (one batch
     element, every dimension zero-padded to a multiple of 32, which leaves
@@ -364,7 +367,7 @@ def _int_mm_ms(A, B):
         ref = torch._int_mm(a, b)[:M, :N]
         if not torch.equal(ref, (A[0].double() @ B[0].double()).int()):
             fail("torch._int_mm disagrees with the exact int8 product")
-        return time_ms(lambda: torch._int_mm(a, b))
+        return time_ms(lambda: torch._int_mm(a, b), INT8_REPS)
     except RuntimeError as e:
         print(f"  torch._int_mm refused {tuple(a.shape)}x{tuple(b.shape)}: "
               f"{str(e).splitlines()[0]}", flush=True)
@@ -437,7 +440,7 @@ def compare_kernels():
             A1, B1 = A2[:1].contiguous(), B2[:1].contiguous()
             ks.check("int8_gemm", "", K.int8_gemm, K.int8_gemm_plain,
                      (A1, B1), dict(shape, B=1),
-                     cost_int8_gemm(1, L * m, k, L * n),
+                     cost_int8_gemm(1, L * m, k, L * n), reps=INT8_REPS,
                      library=lambda: _int_mm_ms(A1, B1))
         C = K.int8_gemm_plain(A2, B2)
         ks.check("cascade_from_c", f"{PL}:420 (_cascade_tiles_call); "
@@ -498,19 +501,35 @@ def compare_kernels():
         ks.check("chol_batched", f"{PL}:153 (_chol_call)", K.chol_batched,
                  K.chol_plain, (a,), dict(nw=nw, B=B, n=n),
                  cost_chol(nw, B, n) if timed else None, reps=3, plain_reps=1)
-    # triangular solves, both forms
-    for nw, (B, n, m), timed in ((5, (4, 11, 11), False),
-                                 (5, (2, 64, 64), True),
-                                 (5, (1, 22, 1), False)):
+    # triangular solves, each form a kernel of its own: timed at the main
+    # path's nw-5 shapes (B 2, n 64, m 64 as in earlier runs; m 1, the KKT
+    # solves on chol(S)'s diagonal blocks, step.py:999-1004; m 96, the
+    # step-length solves on chol(X|Y), step.py:770-771, and X^-1 through
+    # b_solve_cholesky, step.py:879), then compared at trees that are not
+    # powers of two, ragged column tiles (m 211 at B 4, m 95 at B 2), nw 8 at
+    # n 95 (the largest unblocked size) and at n 120 (L read from global
+    # memory: its triangle does not fit in shared memory)
+    rep_tri = {False: f"{PL}:217 (_tril_call)", True: f"{PL}:272 (_tril_t_call)"}
+    for nw, (B, n, m), timed in ((5, (2, 64, 64), (False, True)),
+                                  (5, (1, 64, 1), (False, True)),
+                                  (5, (4, 64, 96), (False,)),
+                                  (5, (2, 64, 96), (True,)),
+                                  (5, (4, 11, 11), ()),
+                                  (5, (1, 22, 1), ()),
+                                  (5, (2, 11, 1), ()),
+                                  (5, (4, 22, 211), ()),
+                                  (8, (1, 95, 1), ()),
+                                  (8, (2, 95, 95), ()),
+                                  (8, (1, 120, 3), ())):
         lw, _ = K.chol_plain(_spd(rng, B, n, nw))
         bw = _words(rng, (B, n, m), nw)
         for trans in (False, True):
-            ks.check("tri_solve_batched", f"{PL}:217 (_tril_call); "
-                     f"{PL}:272 (_tril_t_call)", K.tri_solve_batched,
+            t = trans in timed
+            ks.check(K.TRI_FORMS[trans], rep_tri[trans], K.tri_solve_batched,
                      K.tri_solve_plain, (lw, bw, trans),
-                     dict(nw=nw, B=B, n=n, m=m, trans=trans),
-                     cost_tri(nw, B, n, m, trans) if timed else None,
-                     reps=3, plain_reps=1)
+                     dict(nw=nw, B=B, n=n, m=m),
+                     cost_tri(nw, B, n, m, trans) if t else None,
+                     reps=20, plain_reps=1)
     return ks.recs
 
 
@@ -519,7 +538,8 @@ def compare_kernels():
 # Schur pairings exceed the JAX route threshold). cascade<FROM_DIAGS> has
 # no caller in either package (phase 3 holds it against its plain version).
 PATH_3_10 = ("limb_extract", "int8_gemm", "cascade_from_c", "chol_batched",
-             "tri_solve_batched", "plmap_add", "plmap_axpy", "plmap_residual")
+             "tri_solve_batched<false>", "tri_solve_batched<true>",
+             "plmap_add", "plmap_axpy", "plmap_residual")
 PATH_3_95 = PATH_3_10 + ("limb_gemm",)
 
 
@@ -528,8 +548,9 @@ def check_counts(label, counts, required, n_it):
     print the launches per iteration."""
     from clrs_tpu_torch.dd import kernels as K
 
-    per_it = {f.__name__: round(counts[f.__name__] / max(n_it, 1), 2)
-              for f in K._COUNTED}
+    plain = {f.__name__ for f in K._PLAIN}
+    per_it = {k: round(v / max(n_it, 1), 2) for k, v in counts.items()
+              if k not in plain}
     print(f"{label}: launches per iteration {per_it}", flush=True)
     for name in required:
         if counts[name] <= 0:

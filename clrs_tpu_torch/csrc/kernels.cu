@@ -40,13 +40,21 @@
 //   matrix with the matrix words in dynamic shared memory when they fit
 //   (the global output buffer otherwise); the update reads column j AND
 //   row j of the trailing matrix, as the source does.
-// tri_solve_batched<TRANS>  replaces _tril_call and _tril_t_call
-//   (pl_solve_tril_b / pl_solve_tril_t_b). Bound by the n dependent rows.
-//   One block per batch matrix; dinv = 1/diag once by n threads. The forward
-//   form is right-looking, parallel over the trailing (row, column) pairs;
-//   the transposed form rebuilds each row per column with the same
-//   recursive halving tree as _exp_sum_axis0, evaluated with an explicit
-//   stack (no device recursion).
+// tri_solve_batched<TRANS>  replaces _tril_call (forward, L X = B) and
+//   _tril_t_call (transposed, L^T X = B) (pl_solve_tril_b /
+//   pl_solve_tril_t_b). Bound by the n dependent rows: each is a chain of
+//   expansion ops with block-wide barriers. Columns of X are independent, so
+//   the grid is (batch, column tile) and a tile of TC columns is chosen to
+//   spread B m columns over the SMs. Each block stages L's lower triangle
+//   (packed by column), its tile of B and the tree schedule in shared memory
+//   with cp.async, computes dinv = 1/diag once, solves, and writes its tile
+//   of X once. Forward: right-looking, one step per row, all trailing
+//   (row, column) updates in parallel, and the next row's x scaled by the
+//   thread that finished its update. Transposed: per row, all leaf products
+//   in parallel, then the halving tree of _exp_sum_axis0 reduced level by
+//   level from the schedule the wrapper passes (dd/kernels.py
+//   _tree_schedule, the one the plain version runs): about log2(n) + 3
+//   dependent ops per row instead of about 2n.
 
 #include <cuda_runtime.h>
 
@@ -551,82 +559,99 @@ __global__ void chol_batched(const float* __restrict__ A, float* __restrict__ Ou
 // batched triangular solves with the lower factor
 // ---------------------------------------------------------------------------
 
-constexpr int MAX_TREE_DEPTH = 24;
+constexpr int TRI_THREADS = 256;
+constexpr int TRI_MAX_TC = 4;  // columns of X per block at most
 
-// Row i of L^T X = B for column c: sum_r [r > i] L[r,i] X[r,c] with the
-// recursive halving order of _exp_sum_axis0 (left half first), evaluated
-// iteratively. Rows r <= i contribute exp_mul(0, 0) = +0 words.
-template <int NW>
-__device__ void tree_row_sum(const float* Lb, const float* Xb, size_t nn, size_t nm, int n,
-                             int m, int i, int c, float* out) {
-  int lo_s[MAX_TREE_DEPTH], hi_s[MAX_TREE_DEPTH], stage[MAX_TREE_DEPTH];
-  float vals[MAX_TREE_DEPTH + 1][NW];
-  int sp = 0, vp = 0;
-  lo_s[0] = 0;
-  hi_s[0] = n;
-  stage[0] = 0;
-  sp = 1;
-  while (sp > 0) {
-    const int f = sp - 1;
-    const int lo = lo_s[f], hi = hi_s[f];
-    if (hi - lo == 1) {
-      const int r = lo;
-      if (r > i) {
-        float lv[NW], xv[NW];
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          lv[w] = Lb[w * nn + static_cast<size_t>(r) * n + i];
-          xv[w] = Xb[w * nm + static_cast<size_t>(r) * m + c];
-        }
-        exp_mul<NW>(lv, xv, vals[vp]);
-      } else {
-#pragma unroll
-        for (int w = 0; w < NW; ++w) vals[vp][w] = 0.0f;
-      }
-      ++vp;
-      --sp;
-      continue;
-    }
-    const int mid = lo + (hi - lo) / 2;
-    if (stage[f] == 0) {
-      stage[f] = 1;
-      lo_s[sp] = lo;
-      hi_s[sp] = mid;
-      stage[sp] = 0;
-      ++sp;
-    } else if (stage[f] == 1) {
-      stage[f] = 2;
-      lo_s[sp] = mid;
-      hi_s[sp] = hi;
-      stage[sp] = 0;
-      ++sp;
-    } else {
-      float s[NW];
-      exp_add<NW>(vals[vp - 2], vals[vp - 1], s);
-      vp -= 2;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) vals[vp][w] = s[w];
-      ++vp;
-      --sp;
-    }
-  }
-#pragma unroll
-  for (int w = 0; w < NW; ++w) out[w] = vals[0][w];
+// 4-byte asynchronous copy from global to shared memory (cp.async): the
+// loads of a staging loop are all in flight at once and pass no register.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-template <int NW, bool TRANS>
-__global__ void tri_solve_batched(const float* __restrict__ Lm, const float* __restrict__ Bm,
-                                  float* __restrict__ X, float* __restrict__ Work, int n,
-                                  int m) {
-  extern __shared__ float dinv[];  // [NW][n]
-  const size_t nn = static_cast<size_t>(n) * n, nm = static_cast<size_t>(n) * m;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const float* Lb = Lm + static_cast<size_t>(b) * NW * nn;
-  const float* Bb = Bm + static_cast<size_t>(b) * NW * nm;
-  float* Xb = X + static_cast<size_t>(b) * NW * nm;
-  float* Wb = Work + static_cast<size_t>(b) * NW * nm;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
+// Start of column i in the column-packed lower triangle: L[r, i] for
+// r = i..n-1 is at packed_col(n, i) + r - i.
+__host__ __device__ __forceinline__ int packed_col(int n, int i) { return i * n - i * (i - 1) / 2; }
+
+// Shared memory of one block, in 4-byte units: dinv [NW][n]; the column
+// tile [NW][n][tc] (W, then X, in the forward form; X in the transposed
+// one); transposed only: B's tile [NW][n][tc], the tree [NW][2n-1][tc] and
+// the schedule (nsched ints); L packed [NW][n(n+1)/2] when l_smem.
+struct TriLayout {
+  size_t tile, btile, tree, sched, lpack, bytes;
+};
+
+__host__ __device__ inline TriLayout tri_layout(int nw, int n, int tc, bool trans, bool l_smem,
+                                                int nsched) {
+  TriLayout t;
+  const size_t col = static_cast<size_t>(nw) * n * tc;
+  t.tile = static_cast<size_t>(nw) * n;
+  t.btile = t.tile + col;
+  t.tree = t.btile + (trans ? col : 0);
+  t.sched = t.tree + (trans ? static_cast<size_t>(nw) * (2 * n - 1) * tc : 0);
+  t.lpack = t.sched + (trans ? nsched : 0);
+  const size_t end = t.lpack + (l_smem ? static_cast<size_t>(nw) * n * (n + 1) / 2 : 0);
+  t.bytes = end * sizeof(float);
+  return t;
+}
+
+// Block (b, y) solves columns [y tc, y tc + tcols) of batch member b.
+// L[b] [NW][n][n], B[b] and X[b] [NW][n][m]. sched: the transposed form's
+// tree, H + 1 node offsets per height, then (left, right, out) per node, in
+// the schedule's order; the last node is the root. With l_smem = 0 L is
+// read from global memory (its triangle does not fit beside the tile).
+template <int NW, bool TRANS>
+__global__ void __launch_bounds__(TRI_THREADS)
+    tri_solve_batched(const float* __restrict__ Lm, const float* __restrict__ Bm,
+                      float* __restrict__ X, const int* __restrict__ sched, int n, int m, int tc,
+                      int H, int l_smem) {
+  extern __shared__ float smem[];
+  const int nsched = TRANS ? H + 1 + 3 * (n - 1) : 0;
+  const TriLayout lay = tri_layout(NW, n, tc, TRANS, l_smem, nsched);
+  const size_t nn = static_cast<size_t>(n) * n, nm = static_cast<size_t>(n) * m;
+  const int P = n * (n + 1) / 2;
+  const int nodes = 2 * n - 1;
+  const int b = blockIdx.x, c0 = blockIdx.y * tc;
+  const int tcols = min(tc, m - c0);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, nwarps = nt / 32;
+  const float* Lb = Lm + static_cast<size_t>(b) * NW * nn;
+  const float* Bb = Bm + static_cast<size_t>(b) * NW * nm + c0;
+  float* Xb = X + static_cast<size_t>(b) * NW * nm + c0;
+  float* dinv = smem;
+  float* T = smem + lay.tile;
+  float* Bt = smem + lay.btile;
+  float* tree = smem + lay.tree;
+  int* sch = reinterpret_cast<int*>(smem + lay.sched);
+  float* Lp = smem + lay.lpack;
+
+  // staging, all in flight at once: one warp per row of L (its lower part,
+  // coalesced), one thread per row of the B tile, the schedule; the
+  // transposed form's X and tree start at +0 (leaves of rows r <= i are +0
+  // in the source's masked product, and no row writes them before it is
+  // solved). Meanwhile dinv from the diagonal, read from global memory.
+  if (l_smem) {
+    for (int q = warp; q < NW * n; q += nwarps) {
+      const int w = q / n, r = q - w * n;
+      for (int c = lane; c <= r; c += 32)
+        cp_async4(Lp + w * P + packed_col(n, c) + r - c, Lb + w * nn + static_cast<size_t>(r) * n + c);
+    }
+  }
+  float* bdst = TRANS ? Bt : T;
+  for (int q = tid; q < NW * n; q += nt) {
+    const int w = q / n, r = q - w * n;
+    for (int j = 0; j < tcols; ++j)
+      cp_async4(bdst + static_cast<size_t>(q) * tc + j, Bb + w * nm + static_cast<size_t>(r) * m + j);
+  }
+  if constexpr (TRANS) {
+    for (int q = tid; q < nsched; q += nt) cp_async4(sch + q, sched + q);
+    for (size_t q = tid; q < static_cast<size_t>(NW) * n * tc; q += nt) T[q] = 0.0f;
+    for (size_t q = tid; q < static_cast<size_t>(NW) * nodes * tc; q += nt) tree[q] = 0.0f;
+  }
   for (int r = tid; r < n; r += nt) {
     float one[NW], dg[NW], dv[NW];
 #pragma unroll
@@ -638,58 +663,125 @@ __global__ void tri_solve_batched(const float* __restrict__ Lm, const float* __r
 #pragma unroll
     for (int w = 0; w < NW; ++w) dinv[w * n + r] = dv[w];
   }
+  cp_async_wait_all();
   __syncthreads();
 
+  // L[r, i], word w, is col[w * lw + r * ls] with col the start of column i
+  const size_t lw = l_smem ? P : nn;
+  const int ls = l_smem ? 1 : n;
+  auto column = [&](int i) -> const float* {
+    return l_smem ? Lp + packed_col(n, i) - i : Lb + i;
+  };
+  // t / tcols without a division: exact for t < 2^13, and t < n tc <=
+  // TRI_THREADS whenever tc > 1
+  const unsigned magic = 65536u / tcols + 1u;
+  auto div_tc = [&](int t) { return tcols == 1 ? t : static_cast<int>((t * magic) >> 16); };
+
+  // word w of row r, column j of a [NW][rows][tc] tile
+  auto at = [&](float* base, int rows, int w, int r, int j) -> float& {
+    return base[(static_cast<size_t>(w) * rows + r) * tc + j];
+  };
+
   if constexpr (!TRANS) {
-    // Wb holds a copy of B: the right-hand sides updated in place
-    for (int i = 0; i < n; ++i) {
-      for (int c = tid; c < m; c += nt) {
-        float rhs[NW], di[NW], xi[NW];
+    // T holds W, the right-hand sides updated in place; row i becomes x_i
+    if (tid < tcols) {
+      float rhs[NW], di[NW], xi[NW];
 #pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          rhs[w] = Wb[w * nm + static_cast<size_t>(i) * m + c];
-          di[w] = dinv[w * n + i];
-        }
-        exp_mul<NW>(rhs, di, xi);
-#pragma unroll
-        for (int w = 0; w < NW; ++w) Xb[w * nm + static_cast<size_t>(i) * m + c] = xi[w];
+      for (int w = 0; w < NW; ++w) {
+        rhs[w] = at(T, n, w, 0, tid);
+        di[w] = dinv[w * n];
       }
-      __syncthreads();
-      const int rows = n - i - 1;
-      for (int idx = tid; idx < rows * m; idx += nt) {
-        const int r = i + 1 + idx / m;
-        const int c = idx % m;
-        float lv[NW], xi[NW], u[NW], a[NW], o[NW];
+      exp_mul<NW>(rhs, di, xi);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) at(T, n, w, 0, tid) = xi[w];
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int i = 0; i + 1 < n; ++i) {
+      const float* col = column(i);
+      for (int t = tid; t < (n - 1 - i) * tcols; t += nt) {
+        const int q = div_tc(t), r = i + 1 + q, j = t - q * tcols;
+        float lv[NW], xi[NW], a[NW], u[NW], o[NW];
 #pragma unroll
         for (int w = 0; w < NW; ++w) {
-          lv[w] = Lb[w * nn + static_cast<size_t>(r) * n + i];
-          xi[w] = Xb[w * nm + static_cast<size_t>(i) * m + c];
-          a[w] = Wb[w * nm + static_cast<size_t>(r) * m + c];
+          lv[w] = col[w * lw + static_cast<size_t>(r) * ls];
+          xi[w] = at(T, n, w, i, j);
+          a[w] = at(T, n, w, r, j);
         }
         exp_mul<NW>(lv, xi, u);
         exp_sub<NW>(a, u, o);
+        if (r == i + 1) {  // row i + 1 is final: x_{i+1} = W_{i+1} dinv_{i+1}
+          float di[NW];
 #pragma unroll
-        for (int w = 0; w < NW; ++w) Wb[w * nm + static_cast<size_t>(r) * m + c] = o[w];
+          for (int w = 0; w < NW; ++w) di[w] = dinv[w * n + r];
+          exp_mul<NW>(o, di, u);
+#pragma unroll
+          for (int w = 0; w < NW; ++w) o[w] = u[w];
+        }
+#pragma unroll
+        for (int w = 0; w < NW; ++w) at(T, n, w, r, j) = o[w];
       }
       __syncthreads();
     }
   } else {
-    // each thread owns whole columns: it reads only rows it solved itself
-    for (int c = tid; c < m; c += nt) {
-      for (int i = n - 1; i >= 0; --i) {
-        float s[NW], bi[NW], rhs[NW], di[NW], xi[NW];
-        tree_row_sum<NW>(Lb, Xb, nn, nm, n, m, i, c, s);
+    const int* off = sch;
+    const int* lro = sch + H + 1;
+    const int root = H > 0 ? lro[3 * (n - 2) + 2] : 0;
+#pragma unroll 1
+    for (int i = n - 1; i >= 0; --i) {
+      const float* col = column(i);
+      for (int t = tid; t < (n - 1 - i) * tcols; t += nt) {  // leaves r > i
+        const int q = div_tc(t), r = i + 1 + q, j = t - q * tcols;
+        float lv[NW], xv[NW], p[NW];
 #pragma unroll
         for (int w = 0; w < NW; ++w) {
-          bi[w] = Bb[w * nm + static_cast<size_t>(i) * m + c];
+          lv[w] = col[w * lw + static_cast<size_t>(r) * ls];
+          xv[w] = at(T, n, w, r, j);
+        }
+        exp_mul<NW>(lv, xv, p);
+#pragma unroll
+        for (int w = 0; w < NW; ++w) at(tree, nodes, w, r, j) = p[w];
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int h = 0; h < H; ++h) {  // one height of the tree per barrier
+        const int k0 = off[h];
+        for (int t = tid; t < (off[h + 1] - k0) * tcols; t += nt) {
+          const int q = div_tc(t), k = k0 + q, j = t - q * tcols;
+          const int ka = lro[3 * k], kb = lro[3 * k + 1], ko = lro[3 * k + 2];
+          float x[NW], y[NW], s[NW];
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            x[w] = at(tree, nodes, w, ka, j);
+            y[w] = at(tree, nodes, w, kb, j);
+          }
+          exp_add<NW>(x, y, s);
+#pragma unroll
+          for (int w = 0; w < NW; ++w) at(tree, nodes, w, ko, j) = s[w];
+        }
+        __syncthreads();
+      }
+      if (tid < tcols) {
+        float bi[NW], s[NW], rhs[NW], di[NW], xi[NW];
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          bi[w] = at(Bt, n, w, i, tid);
+          s[w] = at(tree, nodes, w, root, tid);
           di[w] = dinv[w * n + i];
         }
         exp_sub<NW>(bi, s, rhs);
         exp_mul<NW>(rhs, di, xi);
 #pragma unroll
-        for (int w = 0; w < NW; ++w) Xb[w * nm + static_cast<size_t>(i) * m + c] = xi[w];
+        for (int w = 0; w < NW; ++w) at(T, n, w, i, tid) = xi[w];
       }
+      __syncthreads();
     }
+  }
+
+  for (int q = tid; q < NW * n; q += nt) {
+    const int w = q / n, r = q - w * n;
+    for (int j = 0; j < tcols; ++j)
+      Xb[w * nm + static_cast<size_t>(r) * m + j] = T[static_cast<size_t>(q) * tc + j];
   }
 }
 
@@ -767,20 +859,65 @@ int launch_chol(const float* a, float* out, int* ok, int B, int n, cudaStream_t 
   return 0;
 }
 
-template <int NW>
-int launch_tri(const float* l, const float* b, float* x, float* work, int B, int n, int m,
-               int trans, cudaStream_t s) {
-  const size_t bytes = static_cast<size_t>(NW) * n * sizeof(float);
-  if (trans) {
-    cudaFuncSetAttribute(tri_solve_batched<NW, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    tri_solve_batched<NW, true><<<B, THREADS, bytes, s>>>(l, b, x, work, n, m);
-  } else {
-    cudaFuncSetAttribute(tri_solve_batched<NW, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    tri_solve_batched<NW, false><<<B, THREADS, bytes, s>>>(l, b, x, work, n, m);
+// SMs of device dev (read once per device).
+int sm_count(int dev) {
+  static int cache[64] = {0};
+  if (dev < 0 || dev >= 64) return 132;
+  if (cache[dev] == 0) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    cache[dev] = v > 0 ? v : 132;
   }
-  return 0;
+  return cache[dev];
+}
+
+// Lets `kernel` take up to SMEM_MAX of dynamic shared memory on device dev,
+// once per kernel instantiation and device (`done` is its device bit set).
+template <typename Kernel>
+cudaError_t smem_opt_in(Kernel kernel, unsigned long long& done, int dev) {
+  if (dev >= 0 && dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(SMEM_MAX));
+  if (e == cudaSuccess && dev >= 0 && dev < 64) done |= 1ull << dev;
+  return e;
+}
+
+// Column tile: enough (batch, tile) blocks to cover the SMs, at most
+// TRI_MAX_TC columns and one thread per (row, column); it shrinks
+// while L's packed triangle does not fit beside it, and L stays in global
+// memory only where even one column does not leave room for it.
+template <int NW>
+int launch_tri(const float* l, const float* b, float* x, const int* sched, int H, int B, int n,
+               int m, int trans, cudaStream_t s) {
+  static unsigned long long opted[2] = {0, 0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int nsched = trans ? H + 1 + 3 * (n - 1) : 0;
+  long tc = ceil_div(static_cast<long>(B) * m, sm_count(dev));
+  tc = tc < 1 ? 1 : tc;
+  const long cap = TRI_THREADS / n < 1 ? 1 : TRI_THREADS / n;
+  tc = tc > TRI_MAX_TC ? TRI_MAX_TC : tc;
+  tc = tc > cap ? cap : tc;
+  tc = tc > m ? m : tc;
+  while (tc > 1 && tri_layout(NW, n, tc, trans, true, nsched).bytes > SMEM_MAX) --tc;
+  const bool l_smem = tri_layout(NW, n, tc, trans, true, nsched).bytes <= SMEM_MAX;
+  const size_t bytes = tri_layout(NW, n, tc, trans, l_smem, nsched).bytes;
+  if (bytes > SMEM_MAX || ceil_div(m, tc) > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = TRI_THREADS;  // the staging and dinv use them all
+  const dim3 grid(B, static_cast<unsigned>(ceil_div(m, tc)));
+  cudaError_t e;
+  if (trans) {
+    e = smem_opt_in(tri_solve_batched<NW, true>, opted[1], dev);
+    if (e == cudaSuccess)
+      tri_solve_batched<NW, true><<<grid, threads, bytes, s>>>(l, b, x, sched, n, m, tc, H,
+                                                                l_smem);
+  } else {
+    e = smem_opt_in(tri_solve_batched<NW, false>, opted[0], dev);
+    if (e == cudaSuccess)
+      tri_solve_batched<NW, false><<<grid, threads, bytes, s>>>(l, b, x, sched, n, m, tc, H,
+                                                                 l_smem);
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -863,12 +1000,17 @@ int clrs_chol(const float* a, float* out, int* ok, int B, int n, int nw, void* s
   return static_cast<int>(cudaGetLastError());
 }
 
-int clrs_tri_solve(const float* l, const float* b, float* x, float* work, int B, int n, int m,
-                   int nw, int trans, void* stream) {
+// sched, H: the transposed form's tree schedule (see tri_solve_batched);
+// unused by the forward form.
+int clrs_tri_solve(const float* l, const float* b, float* x, const int* sched, int H, int B,
+                   int n, int m, int nw, int trans, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || n <= 0 || m <= 0 || n >= (1 << (MAX_TREE_DEPTH - 1)))
+  if (B <= 0 || n <= 0 || m <= 0 || (trans && (sched == nullptr || H < 0 || H >= n)))
     return static_cast<int>(cudaErrorInvalidValue);
-  CLRS_DISPATCH_NW(nw, launch_tri<NWc>(l, b, x, work, B, n, m, trans, s));
+  CLRS_DISPATCH_NW(nw, {
+    const int rc = launch_tri<NWc>(l, b, x, sched, H, B, n, m, trans, s);
+    if (rc != 0) return rc;
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,7 +59,7 @@ def _declare(lib):
     lib.clrs_limb_extract.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
     lib.clrs_limb_gemm.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.clrs_chol.argtypes = [vp, vp, vp, i, i, i, vp]
-    lib.clrs_tri_solve.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.clrs_tri_solve.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
     lib.clrs_int8_gemm.argtypes = [vp, vp, vp, i, i, i, i, vp]
     lib.clrs_cascade.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.clrs_plmap.argtypes = [i, ctypes.POINTER(vp),

@@ -21,6 +21,10 @@ so a run can show which route it took (:func:`reset_counts`,
 | plmap_axpy         | plmap_axpy                 | pl_map, state update (solver/step.py:1244)     |
 | plmap_residual     | plmap_residual<CORR>       | pl_map, residual R (solver/step.py:1387)       |
 
+The two forms of tri_solve_batched are also counted apart
+(``tri_solve_batched.launches_by_form``, keyed by ``trans``, and in
+:func:`counts` under their kernels' names).
+
 Operands are word tuples with a leading batch axis, as the JAX kernels'
 [L] grid axis; most kernels take them stacked word-major, [B, nw, ...];
 the ``plmap_*`` chains read each word where it lies, through its strides.
@@ -48,17 +52,25 @@ def limb_params(nw):
     return L, min(2 * L - 1, bits // LIMB_BITS + 1)
 
 
+# the two forms of tri_solve_batched, counted apart: trans -> kernel name
+TRI_FORMS = {False: "tri_solve_batched<false>", True: "tri_solve_batched<true>"}
+
+
 def reset_counts():
     for f in _COUNTED:
         f.launches = 0
+    tri_solve_batched.launches_by_form = dict.fromkeys(TRI_FORMS, 0)
     for f in _PLAIN:
         f.calls = 0
 
 
 def counts():
-    """{name: launches} for the kernels and {name_plain: calls} for the
-    plain versions."""
+    """{name: launches} for the kernels (and for each form of
+    tri_solve_batched under its kernel's name) and {name_plain: calls} for
+    the plain versions."""
     out = {f.__name__: f.launches for f in _COUNTED}
+    out.update({TRI_FORMS[t]: v
+                for t, v in tri_solve_batched.launches_by_form.items()})
     out.update({f.__name__: f.calls for f in _PLAIN})
     return out
 
@@ -138,6 +150,29 @@ def tree_sum_rows(ws):
         for c, sc in zip(buf, s):
             c.index_copy_(1, io, sc)
     return tuple(c[:, root:root + 1] for c in buf)
+
+
+@functools.lru_cache(maxsize=None)
+def tree_table(n):
+    """:func:`_tree_schedule` (n) flattened as the transposed solve kernel
+    reads it: (int32 table, H heights). The table holds H + 1 node offsets
+    (0, then the running count of nodes per height: the nodes of height
+    h + 1 are entries off[h] .. off[h + 1] - 1), then (left, right, out) of
+    each of the n - 1 nodes in the schedule's order; the last node is the
+    root (leaf 0 when n = 1)."""
+    sched, _, _ = _tree_schedule(n)
+    offs, nodes = [0], []
+    for a, b, o in sched:
+        offs.append(offs[-1] + len(a))
+        nodes.extend(v for t in zip(a, b, o) for v in t)
+    return torch.tensor(offs + nodes, dtype=torch.int32), len(sched)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_table_on(n, device):
+    """:func:`tree_table` (n) on ``device``, copied there once."""
+    table, H = tree_table(n)
+    return table.to(device), H
 
 
 def _pad3(shape):
@@ -703,7 +738,8 @@ def chol_batched(a):
 
 def tri_solve_batched(l, b, trans=False):
     """Batched triangular solve with the lower factor; see
-    :func:`tri_solve_plain`."""
+    :func:`tri_solve_plain`. The transposed form's kernel reduces the
+    halving tree by the schedule of :func:`tree_table`."""
     if not _route(l[0]):
         return tri_solve_plain(l, b, trans)
     from .build import library
@@ -715,17 +751,19 @@ def tri_solve_batched(l, b, trans=False):
     m = Bw.shape[3]
     if Lw.shape[3] != n or Bw.shape[:3] != (Bt, nw, n):
         raise ValueError(f"tri_solve_batched: {Lw.shape} vs {Bw.shape}")
+    trans = bool(trans)
+    table, H = _tree_table_on(n, Lw.device) if trans else (None, 0)
     x = torch.empty_like(Bw)
-    work = Bw.clone() if not trans else x
-    rc = library().clrs_tri_solve(_ptr(Lw), _ptr(Bw), _ptr(x), _ptr(work),
+    rc = library().clrs_tri_solve(_ptr(Lw), _ptr(Bw), _ptr(x),
+                                  None if table is None else _ptr(table), H,
                                   Bt, n, m, nw, int(trans), _stream())
     _launched(rc, "tri_solve_batched")
     tri_solve_batched.launches += 1
+    tri_solve_batched.launches_by_form[trans] += 1
     return _unstack(x)
 
 
 _COUNTED = (limb_extract, limb_gemm, int8_gemm, cascade_from_c,
             cascade_from_diags, chol_batched, tri_solve_batched, plmap_add,
             plmap_axpy, plmap_residual)
-for _f in _COUNTED:
-    _f.launches = 0
+reset_counts()

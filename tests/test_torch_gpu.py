@@ -84,6 +84,30 @@ def _same(xs, ys):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nw, B, n, m", [
+    (5, 1, 64, 1),      # the KKT solves: one column, one block
+    (5, 4, 22, 211),    # more columns than a tile holds, a ragged last tile
+    (5, 3, 1, 5),       # n 1: no tree
+    (8, 1, 95, 1),      # the largest unblocked size
+    (8, 2, 95, 95),     # two-column tiles beside L at nw 8: ragged
+    (8, 1, 120, 3),     # L's triangle exceeds shared memory: read globally
+])
+def test_tri_solve_shapes_match_plain_on_card(nw, B, n, m, cuda):
+    """Both forms of the solve equal the plain version bit for bit at the
+    column tilings and sizes the kernel treats apart, and each launch is
+    counted under its form."""
+    rng = np.random.default_rng(40 + n)
+    L, _ = K.chol_plain(_t(spd_words(B, n, nw, 41), cuda))
+    Bm = _t(split_words(rng.standard_normal((B, n, m)), nw), cuda)
+    K.reset_counts()
+    for trans in (False, True):
+        assert _same(K.tri_solve_batched(L, Bm, trans),
+                     K.tri_solve_plain(L, Bm, trans))
+    c = K.counts()
+    assert c["tri_solve_batched<false>"] == c["tri_solve_batched<true>"] == 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("nw", [5, 6, 7, 8])
 def test_split_route_kernels_match_plain_on_card(nw, cuda):
     """The split route's kernels (extraction in the GEMM layouts, the int8

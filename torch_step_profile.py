@@ -8,7 +8,9 @@ iterations are timed on the host clock, the next ``--iters`` run under
 torch.profiler. Prints one JSON line: wall ms per iteration (unprofiled
 and profiled), device kernels per iteration, device busy ms and share per
 iteration (kernels run on one stream, so their times add), the port's
-kernel launches per iteration (clrs_tpu_torch.dd.kernels counters) and the
+kernel launches per iteration (clrs_tpu_torch.dd.kernels counters, the two
+forms of the triangular solve apart), the calls and device ms per
+iteration of each of the port's CUDA kernels (by template instance) and the
 largest device times by kernel name. Run it from the root of a checkout
 (the package is imported from beside the script, so a copy of the script in
 another checkout profiles that checkout) on a machine with a card:
@@ -60,8 +62,9 @@ def main():
             prof.start()
         elif it == W + 2 * N:
             prof.stop()
-            launches.update({f.__name__: K.counts()[f.__name__] / N
-                             for f in K._COUNTED})
+            plain = {f.__name__ for f in K._PLAIN}
+            launches.update({k: v / N for k, v in K.counts().items()
+                             if k not in plain})
 
     problem = delsarte_problem(3, args.d, Fraction(1, 2))
     ct.solvesdp(problem, device="cuda", omega_p=100, omega_d=100,
@@ -78,6 +81,16 @@ def main():
         c, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
     busy = sum(t for _, t in by_name.values()) / N
+    # the port's own kernels (csrc/kernels.cu keeps them in a top-level
+    # anonymous namespace; PyTorch's lie under at::), by name and template
+    # arguments
+    port = {}
+    for nm, (c, t) in by_name.items():
+        head, sep, rest = nm.partition("(anonymous namespace)::")
+        if sep and head in ("", "void "):
+            key = rest.split("(", 1)[0]
+            pc, pt = port.get(key, (0, 0.0))
+            port[key] = (pc + c, pt + t)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
     print(json.dumps({
         "card": card, "checkout": str(Path(__file__).resolve().parent),
@@ -88,6 +101,8 @@ def main():
         "device_busy_ms_per_iteration": busy if dev else None,
         "device_busy_share": busy / wall_prof if dev else None,
         "port_launches_per_iteration": launches,
+        "port_kernel_calls_and_device_ms_per_iteration": {
+            k: [c / N, t / N] for k, (c, t) in sorted(port.items())},
         "top_device_ms_per_iteration": {
             nm[:90]: [c / N, t / N] for nm, (c, t) in top},
     }), flush=True)
