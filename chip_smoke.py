@@ -6,13 +6,16 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (one line each; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernels from clrs_tpu_torch/csrc, with its seconds;
+  2. build of the CUDA kernels from clrs_tpu_torch/csrc (one nvcc per
+     source, all at once), with its seconds;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path and at nw = 5 and 8 (bit-identical is the
-     tolerance), the split GEMM route against the fused one, and at one
-     or two shapes per kernel (one per TPU kernel it replaces) its time,
-     its plain version's time (time_ms), its bound on this card (bound)
-     and a library call's time where one PyTorch call computes the same
+     shapes of the main path, at nw = 5 and 8 and at the edge shapes each
+     kernel treats apart (bit-identical is the tolerance, ok flags
+     included), the split GEMM route against the fused one, and at its
+     main-path shapes (at least one per TPU kernel it replaces; every
+     int8_gemm shape of a delsarte(3,95) iteration) its time, its plain
+     version's time (time_ms), its bound on this card (bound) and a
+     library call's time where one PyTorch call computes the same
      function;
   4. delsarte(3, 10) through clrs_tpu_torch.solvesdp (the card is its
      default device): error code 0, Optimal, objective within 1e-9 of
@@ -272,18 +275,47 @@ def _spd(rng, B, n, nw):
     return _split(a @ a.transpose(0, 2, 1) + n * np.eye(n), nw)
 
 
+def _indefinite(rng, B, n, nw):
+    """B SPD members, the last one L D L^T with unit lower L whose pivot
+    n // 2 is -1 while its diagonal entry there starts positive."""
+    import numpy as np
+
+    a = rng.standard_normal((B, n, n))
+    v = a @ a.transpose(0, 2, 1) + n * np.eye(n)
+    j = n // 2
+    lu = np.tril(rng.standard_normal((n, n)) * 0.2, -1) + np.eye(n)
+    lu[j, :j] = 1.0
+    d = np.ones(n)
+    d[j] = -1.0
+    v[-1] = lu @ np.diag(d) @ lu.T
+    return _split(v, nw)
+
+
+def _limbs(rng, shape, extreme=False):
+    """int8 limbs on the card: drawn from [-65, 65], or all +-65."""
+    import numpy as np
+    import torch
+
+    v = (rng.integers(0, 2, shape) * 130 - 65 if extreme
+         else rng.integers(-65, 66, shape))
+    return torch.from_numpy(v.astype(np.int8)).to("cuda")
+
+
 def _compare(xs, ys):
-    """(bit-identical?, max |x - y|) over paired tensors."""
+    """(bit-identical?, max |x - y| where the bits differ) over paired
+    tensors (NaNs with equal bits, as past a failed Cholesky pivot, agree)."""
     import torch
 
     same, err = True, 0.0
     for x, y in zip(xs, ys):
         if x.dtype == torch.float32:
-            same &= torch.equal(x.view(torch.int32), y.view(torch.int32))
+            eq = x.view(torch.int32) == y.view(torch.int32)
         else:
-            same &= torch.equal(x, y)
+            eq = x == y
+        same &= bool(eq.all())
         if x.numel():
-            err = max(err, (x.double() - y.double()).abs().max().item())
+            d = torch.where(eq, 0.0, (x.double() - y.double()).abs())
+            err = max(err, d.max().item())
     return same, err
 
 
@@ -302,6 +334,8 @@ class Kernels:
     function, that call's time."""
 
     SRC = "clrs_tpu_torch/csrc/kernels.cu"
+    SRC_OF = {"int8_gemm": "clrs_tpu_torch/csrc/int8_gemm.cu",
+              "chol_batched": "clrs_tpu_torch/csrc/chol.cu"}
     PL = "clrs_tpu/dd/pallas_linalg.py"
 
     def __init__(self):
@@ -309,7 +343,8 @@ class Kernels:
 
     def entry(self, name, replaces):
         return self.recs.setdefault(name, dict(
-            name=name, route="cuda", source=self.SRC, replaces=replaces,
+            name=name, route="cuda", source=self.SRC_OF.get(name, self.SRC),
+            replaces=replaces,
             launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
             bound_ms=None, bound_by=None, library_ms=None, compared=0))
 
@@ -350,19 +385,33 @@ class Kernels:
 
 
 INT8_REPS = 50   # int8_gemm and torch._int_mm differ by under 1 us per call
+# (B, M, K, N) of every int8_gemm call in the first iteration of
+# delsarte(3,95), the split route's GEMMs there (torch_kernel_timing.py
+# --kernel int8_gemm --d 95 --iters 1)
+INT8_SHAPES_3_95 = ((1, 21, 191, 4032), (1, 21, 192, 21), (1, 1344, 64, 21),
+                    (1, 1344, 128, 21), (1, 4011, 192, 21), (1, 4032, 1, 21),
+                    (2, 672, 64, 2016), (4, 672, 64, 672), (4, 672, 64, 2016))
 
 
-def _int_mm_ms(A, B):
-    """Time of torch._int_mm on the same int8 operands (one batch
-    element, every dimension zero-padded to a multiple of 32, which leaves
-    the product as it is); None where the call is refused."""
-    import torch
+def _pad32(A, B):
+    """One batch element of int8 operands [1, M, K] and [1, K, N], every
+    dimension zero-padded to a multiple of 32 (the product's top-left
+    M x N block is unchanged): the shapes torch._int_mm takes."""
     import torch.nn.functional as F
 
     M, K = A.shape[1:]
     N = B.shape[2]
-    a = F.pad(A[0], (0, -K % 32, 0, -M % 32))
-    b = F.pad(B[0], (0, -N % 32, 0, -K % 32))
+    return (F.pad(A[0], (0, -K % 32, 0, -M % 32)),
+            F.pad(B[0], (0, -N % 32, 0, -K % 32)))
+
+
+def _int_mm_ms(A, B):
+    """Time of torch._int_mm on the same int8 operands, padded by _pad32;
+    None where the call is refused."""
+    import torch
+
+    M, N = A.shape[1], B.shape[2]
+    a, b = _pad32(A, B)
     try:
         ref = torch._int_mm(a, b)[:M, :N]
         if not torch.equal(ref, (A[0].double() @ B[0].double()).int()):
@@ -442,6 +491,13 @@ def compare_kernels():
                      (A1, B1), dict(shape, B=1),
                      cost_int8_gemm(1, L * m, k, L * n), reps=INT8_REPS,
                      library=lambda: _int_mm_ms(A1, B1))
+            # and on the library call's padded operands: what the ragged
+            # pitches of the unpadded ones cost the kernel
+            Ap, Bp = (t[None] for t in _pad32(A1, B1))
+            ks.check("int8_gemm", "", K.int8_gemm, K.int8_gemm_plain,
+                     (Ap, Bp), dict(shape, B=1, padded_to=32),
+                     cost_int8_gemm(1, *Ap.shape[1:], Bp.shape[2]),
+                     reps=INT8_REPS)
         C = K.int8_gemm_plain(A2, B2)
         ks.check("cascade_from_c", f"{PL}:420 (_cascade_tiles_call); "
                  f"{PL}:469 (_cascade_tiles_grid_call)", K.cascade_from_c,
@@ -459,6 +515,30 @@ def compare_kernels():
               flush=True)
         if not same:
             fail(f"fx_matmul split and fused routes differ at {shape}")
+    # int8_gemm untimed at the depths, widths and alignments its staging and
+    # tiles treat apart (K of one, of a chunk and around it, and the deepest
+    # exact K with every limb at +-65: the largest |C|; N = L n at n 1, the
+    # narrow tile; ragged M and N; B 4; K and N multiples of 4 and 16, the
+    # vector paths), then timed at the split-route shapes of delsarte(3,95)
+    rep_int8 = ("clrs_tpu/dd/limb_gemm.py:307 (XLA int8 dot_general, not "
+                "Pallas)")
+    for (B, M, k, N), extreme in (((1, 21, 1, 22), True),
+                                  ((1, 40, 31, 50), True),
+                                  ((1, 64, 32, 64), True),
+                                  ((2, 70, 33, 45), True),
+                                  ((1, 40, 8192, 36), True),
+                                  ((4, 462, 11, 21), False),
+                                  ((1, 97, 20, 130), False),
+                                  ((4, 100, 48, 260), False)):
+        a, b = _limbs(rng, (B, M, k), extreme), _limbs(rng, (B, k, N), extreme)
+        ks.check("int8_gemm", rep_int8, K.int8_gemm, K.int8_gemm_plain, (a, b),
+                 dict(B=B, M=M, K=k, N=N, extreme=extreme))
+    for B, M, k, N in INT8_SHAPES_3_95:
+        a, b = _limbs(rng, (B, M, k)), _limbs(rng, (B, k, N))
+        ks.check("int8_gemm", rep_int8, K.int8_gemm, K.int8_gemm_plain, (a, b),
+                 dict(B=B, M=M, K=k, N=N, delsarte_3_95=True),
+                 cost_int8_gemm(B, M, k, N), reps=INT8_REPS,
+                 library=(lambda a=a, b=b: _int_mm_ms(a, b)) if B == 1 else None)
     # the three chains: the class shapes of delsarte(3,10) and (3,95)
     for nw, (L, n), timed in ((5, (2, 11), False), (5, (2, 96), True),
                               (8, (2, 11), False), (8, (2, 96), False)):
@@ -491,16 +571,35 @@ def compare_kernels():
                  dict(shape, corr=True),
                  cost_plmap((mu, mask, x, d), nw, el, 2 * nw + 2 * add)
                  if timed else None)
-    # Cholesky: X|Y blocks, Schur-sized and a blocked diagonal block
-    for nw, (B, n), timed in ((5, (4, 11), False), (5, (2, 64), True),
-                              (5, (1, 95), False), (8, (2, 22), False)):
-        a = _spd(rng, B, n, nw)
-        if B > 1 and n == 11:       # an indefinite member: ok flag false
+    # Cholesky: X|Y blocks, Schur-sized and a blocked diagonal block of
+    # chol(S) (B 1, n 64; two of them at B 2), timed; then untimed at the
+    # sizes where its chain, its shared layout and its global-memory path
+    # (nw 8, n 95) differ, with members that fail: a negative diagonal entry
+    # ("diag") or a pivot that turns negative halfway ("mid")
+    rep_chol = f"{PL}:153 (_chol_call)"
+    for nw, (B, n), timed, bad in ((5, (4, 11), False, "diag"),
+                                   (5, (2, 64), True, None),
+                                   (5, (1, 64), True, None),
+                                   (5, (1, 95), False, None),
+                                   (8, (2, 22), False, None),
+                                   (5, (3, 1), False, None),
+                                   (5, (2, 2), False, None),
+                                   (5, (1, 63), False, None),
+                                   (5, (2, 65), False, "mid"),
+                                   (5, (2, 95), False, "mid"),
+                                   (8, (1, 1), False, None),
+                                   (8, (1, 2), False, None),
+                                   (8, (1, 63), False, None),
+                                   (8, (2, 64), False, "mid"),
+                                   (8, (1, 65), False, None),
+                                   (8, (2, 95), False, "mid")):
+        a = _spd(rng, B, n, nw) if bad != "mid" else _indefinite(rng, B, n, nw)
+        if bad == "diag":
             a = (a[0].clone(),) + a[1:]
             a[0][1, 3, 3] = -50.0
-        ks.check("chol_batched", f"{PL}:153 (_chol_call)", K.chol_batched,
-                 K.chol_plain, (a,), dict(nw=nw, B=B, n=n),
-                 cost_chol(nw, B, n) if timed else None, reps=3, plain_reps=1)
+        ks.check("chol_batched", rep_chol, K.chol_batched, K.chol_plain, (a,),
+                 dict(nw=nw, B=B, n=n, failing=bad),
+                 cost_chol(nw, B, n) if timed else None, reps=10, plain_reps=1)
     # triangular solves, each form a kernel of its own: timed at the main
     # path's nw-5 shapes (B 2, n 64, m 64 as in earlier runs; m 1, the KKT
     # solves on chol(S)'s diagonal blocks, step.py:999-1004; m 96, the

@@ -1,7 +1,8 @@
 // The CUDA kernels of the f32-expansion IPM (sm_90a), with a plain C
 // interface loaded by clrs_tpu_torch/dd/build.py through ctypes.
 //
-// Each C entry launches on the caller's stream, synchronises nothing,
+// Each C entry (here and in the other sources of csrc/, each compiled on
+// its own) launches on the caller's stream, synchronises nothing,
 // allocates nothing and returns cudaGetLastError(). Word counts NW = 5..8
 // are instantiated (the f32 substrate's ladder); other values return
 // cudaErrorInvalidValue. Tensors are stacked word-major: [B, NW, rows, cols].
@@ -19,10 +20,7 @@
 //   memory; every diagonal's int32 sum accumulates exactly in registers with
 //   __dp4a; the cascade runs per output element in registers. Ragged m/n/k
 //   edges are masked, not padded.
-// int8_gemm                 the split route's int8 product C = A B, the XLA
-//   dot_general of clrs_tpu/dd/limb_gemm.py:307 (not a Pallas kernel there).
-//   Bound by its int8 operations at these sizes; __dp4a on 64x64 tiles, a
-//   simple first version (no tensor cores).
+// int8_gemm                 the split route's int8 product: csrc/int8_gemm.cu.
 // cascade<FROM_C>           replaces _cascade_tiles_call / pl_cascade_tiles
 //   and _cascade_tiles_grid_call / pl_cascade_tiles_grid: the diagonal sums
 //   of C and the cascade. Bound by reading the kept limb-pair tiles of C.
@@ -34,12 +32,7 @@
 //   clrs_tpu/solver/step.py: one thread per element, all words in registers,
 //   broadcast operands read through per-word strides. Bound by the bytes of
 //   the words they read and write.
-// chol_batched              replaces _chol_call / pl_cholesky_b.
-//   Bound by the column-sequential recurrence: n dependent pivots, each an
-//   exp_rsqrt on one thread, then an (n-j)^2 update. One block per batch
-//   matrix with the matrix words in dynamic shared memory when they fit
-//   (the global output buffer otherwise); the update reads column j AND
-//   row j of the trailing matrix, as the source does.
+// chol_batched              replaces _chol_call / pl_cholesky_b: csrc/chol.cu.
 // tri_solve_batched<TRANS>  replaces _tril_call (forward, L X = B) and
 //   _tril_t_call (transposed, L^T X = B) (pl_solve_tril_b /
 //   pl_solve_tril_t_b). Bound by the n dependent rows: each is a chain of
@@ -60,6 +53,7 @@
 
 #include <cstdint>
 
+#include "common.cuh"
 #include "expansion.cuh"
 
 using namespace clrs;
@@ -253,73 +247,6 @@ __global__ void __launch_bounds__(TM * TN)
 }
 
 // ---------------------------------------------------------------------------
-// batched int8 GEMM (the split route's product C)
-// ---------------------------------------------------------------------------
-
-constexpr int GT = 64, GK = 32, GKQ = GK / 4;
-
-// C[b] = A[b] B[b], int8 [M, K] x [K, N] -> int32 [M, N], exact (limb
-// products <= 2^13, K <= 2^13). 64x64 output tiles, 256 threads of 4x4
-// outputs each, 32-deep k chunks staged in shared memory packed four int8
-// to an int (B transposed), __dp4a on the packed words. Ragged M/N/K edges
-// are masked with zeros.
-__global__ void __launch_bounds__(256)
-    int8_gemm(const int8_t* __restrict__ A, const int8_t* __restrict__ Bm, int* __restrict__ C,
-              int M, int K, int N) {
-  constexpr int ROW = GKQ + 1;  // ints per shared row (+1 against bank conflicts)
-  __shared__ int As[GT * ROW];
-  __shared__ int Bs[GT * ROW];
-  int8_t* As8 = reinterpret_cast<int8_t*>(As);
-  int8_t* Bs8 = reinterpret_cast<int8_t*>(Bs);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int b = blockIdx.z, i0 = blockIdx.y * GT, j0 = blockIdx.x * GT;
-  const int8_t* Ab = A + static_cast<size_t>(b) * M * K;
-  const int8_t* Bb = Bm + static_cast<size_t>(b) * K * N;
-  int acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += GK) {
-    for (int idx = tid; idx < GT * GK; idx += 256) {
-      const int r = idx / GK, kk = idx % GK;
-      const int gi = i0 + r, gk = k0 + kk;
-      As8[r * ROW * 4 + kk] = (gi < M && gk < K) ? Ab[static_cast<size_t>(gi) * K + gk] : 0;
-    }
-    for (int idx = tid; idx < GT * GK; idx += 256) {
-      const int c = idx % GT, kk = idx / GT;
-      const int gj = j0 + c, gk = k0 + kk;
-      Bs8[c * ROW * 4 + kk] = (gj < N && gk < K) ? Bb[static_cast<size_t>(gk) * N + gj] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < GKQ; ++q) {
-      int a[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[(ty + 16 * r) * ROW + q];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = Bs[(tx + 16 * c) * ROW + q];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = __dp4a(a[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-  int* Cb = C + static_cast<size_t>(b) * M * N;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      if (i < M && j < N) Cb[static_cast<size_t>(i) * N + j] = acc[r][c];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // the cascade from a finished int8 product C, or from precomputed diagonals
 // ---------------------------------------------------------------------------
 
@@ -462,97 +389,6 @@ __global__ void plmap_residual(Words mu, Words mask, Words xy, Words dxdy,
   }
 #pragma unroll
   for (int k = 0; k < NW; ++k) out[k * total + e.t] = fmul(r[k], mk);
-}
-
-// ---------------------------------------------------------------------------
-// batched Cholesky
-// ---------------------------------------------------------------------------
-
-template <int NW>
-__global__ void chol_batched(const float* __restrict__ A, float* __restrict__ Out,
-                             int* __restrict__ ok_out, int n, int use_smem) {
-  extern __shared__ float smem[];
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const float* Ab = A + static_cast<size_t>(b) * NW * nn;
-  float* Ob = Out + static_cast<size_t>(b) * NW * nn;
-  float* W = use_smem ? smem : Ob;                    // [NW][n][n]
-  float* coll = use_smem ? smem + NW * nn : smem;     // [NW][n]
-  float* rowl = coll + NW * n;                        // [NW][n]
-  float* piv = rowl + NW * n;                         // rs[NW], rt[NW]
-  __shared__ int ok;
-
-  for (size_t t = tid; t < NW * nn; t += nt) W[t] = Ab[t];
-  if (tid == 0) ok = 1;
-  __syncthreads();
-
-  for (int j = 0; j < n; ++j) {
-    if (tid == 0) {
-      float d[NW], rs[NW], rt[NW];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) d[w] = W[w * nn + static_cast<size_t>(j) * n + j];
-      const bool pos = d[0] > 0.0f;
-      if (!pos) ok = 0;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) d[w] = pos ? d[w] : (w == 0 ? 1.0f : 0.0f);
-      exp_rsqrt<NW>(d, rs);
-      exp_mul<NW>(d, rs, rt);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        piv[w] = rs[w];
-        piv[NW + w] = rt[w];
-      }
-    }
-    __syncthreads();
-    for (int i = j + 1 + tid; i < n; i += nt) {
-      float rs[NW], cw[NW], rw[NW], o[NW];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        rs[w] = piv[w];
-        cw[w] = W[w * nn + static_cast<size_t>(i) * n + j];
-        rw[w] = W[w * nn + static_cast<size_t>(j) * n + i];
-      }
-      exp_mul<NW>(cw, rs, o);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) coll[w * n + i] = o[w];
-      exp_mul<NW>(rw, rs, o);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) rowl[w * n + i] = o[w];
-    }
-    __syncthreads();
-    const int nt2 = n - j - 1;
-    for (int idx = tid; idx < nt2 * nt2; idx += nt) {
-      const int i = j + 1 + idx / nt2;
-      const int c = j + 1 + idx % nt2;
-      float x[NW], y[NW], u[NW], a[NW], r[NW];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        x[w] = coll[w * n + i];
-        y[w] = rowl[w * n + c];
-        a[w] = W[w * nn + static_cast<size_t>(i) * n + c];
-      }
-      exp_mul<NW>(x, y, u);
-      exp_sub<NW>(a, u, r);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) W[w * nn + static_cast<size_t>(i) * n + c] = r[w];
-    }
-    for (int i = j + 1 + tid; i < n; i += nt) {
-#pragma unroll
-      for (int w = 0; w < NW; ++w) W[w * nn + static_cast<size_t>(i) * n + j] = coll[w * n + i];
-    }
-    if (tid == 0) {
-#pragma unroll
-      for (int w = 0; w < NW; ++w) W[w * nn + static_cast<size_t>(j) * n + j] = piv[NW + w];
-    }
-    __syncthreads();
-  }
-  for (size_t t = tid; t < NW * nn; t += nt) {
-    const size_t ij = t % nn;
-    const int i = static_cast<int>(ij / n), c = static_cast<int>(ij % n);
-    Ob[t] = i >= c ? W[t] : 0.0f;
-  }
-  if (tid == 0) ok_out[b] = ok;
 }
 
 // ---------------------------------------------------------------------------
@@ -786,9 +622,6 @@ __global__ void __launch_bounds__(TRI_THREADS)
 }
 
 constexpr int THREADS = 256;
-constexpr size_t SMEM_MAX = 227 * 1024;
-
-long ceil_div(long a, long b) { return (a + b - 1) / b; }
 
 template <int NW>
 int launch_extract(const float* w, int8_t* limbs, const int* exps, int B, int d0, int d1,
@@ -847,41 +680,6 @@ int launch_gemm(const int8_t* a3, const int8_t* b3, const int* eab, float* out, 
   return 0;
 }
 
-template <int NW>
-int launch_chol(const float* a, float* out, int* ok, int B, int n, cudaStream_t s) {
-  const size_t whole = (static_cast<size_t>(NW) * n * n + 2 * NW * n + 2 * NW) * sizeof(float);
-  const int use_smem = whole <= SMEM_MAX;
-  const size_t bytes =
-      use_smem ? whole : (static_cast<size_t>(2) * NW * n + 2 * NW) * sizeof(float);
-  cudaFuncSetAttribute(chol_batched<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(bytes));
-  chol_batched<NW><<<B, THREADS, bytes, s>>>(a, out, ok, n, use_smem);
-  return 0;
-}
-
-// SMs of device dev (read once per device).
-int sm_count(int dev) {
-  static int cache[64] = {0};
-  if (dev < 0 || dev >= 64) return 132;
-  if (cache[dev] == 0) {
-    int v = 0;
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    cache[dev] = v > 0 ? v : 132;
-  }
-  return cache[dev];
-}
-
-// Lets `kernel` take up to SMEM_MAX of dynamic shared memory on device dev,
-// once per kernel instantiation and device (`done` is its device bit set).
-template <typename Kernel>
-cudaError_t smem_opt_in(Kernel kernel, unsigned long long& done, int dev) {
-  if (dev >= 0 && dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(SMEM_MAX));
-  if (e == cudaSuccess && dev >= 0 && dev < 64) done |= 1ull << dev;
-  return e;
-}
-
 // Column tile: enough (batch, tile) blocks to cover the SMs, at most
 // TRI_MAX_TC columns and one thread per (row, column); it shrinks
 // while L's packed triangle does not fit beside it, and L stays in global
@@ -922,15 +720,6 @@ int launch_tri(const float* l, const float* b, float* x, const int* sched, int H
 
 }  // namespace
 
-#define CLRS_DISPATCH_NW(nw, call)               \
-  switch (nw) {                                  \
-    case 5: { constexpr int NWc = 5; call; } break; \
-    case 6: { constexpr int NWc = 6; call; } break; \
-    case 7: { constexpr int NWc = 7; call; } break; \
-    case 8: { constexpr int NWc = 8; call; } break; \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
-  }
-
 extern "C" {
 
 const char* clrs_error_string(int rc) {
@@ -945,16 +734,6 @@ int clrs_limb_extract(const float* w, int8_t* limbs, int* exps, int B, int nw, i
   const long rows = static_cast<long>(B) * (side_a ? d0 : d1);
   limb_extract_exp<<<ceil_div(rows, THREADS), THREADS, 0, s>>>(w, exps, B, nw, d0, d1, side_a);
   CLRS_DISPATCH_NW(nw, launch_extract<NWc>(w, limbs, exps, B, d0, d1, side_a, b_gemm, s));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int clrs_int8_gemm(const int8_t* a, const int8_t* b, int* c, int B, int M, int K, int N,
-                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || M <= 0 || K <= 0 || N <= 0 || B > 65535 || ceil_div(M, GT) > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(ceil_div(N, GT), ceil_div(M, GT), B);
-  int8_gemm<<<grid, 256, 0, s>>>(a, b, c, M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -990,13 +769,6 @@ int clrs_limb_gemm(const int8_t* a3, const int8_t* b3, const int* eab, float* ou
   if (B <= 0 || m <= 0 || k <= 0 || n <= 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CLRS_DISPATCH_NW(nw, launch_gemm<NWc>(a3, b3, eab, out, B, m, k, n, s));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int clrs_chol(const float* a, float* out, int* ok, int B, int n, int nw, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  CLRS_DISPATCH_NW(nw, launch_chol<NWc>(a, out, ok, B, n, s));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels (``clrs_tpu_torch/csrc``).
 
-``nvcc`` compiles the sources into one shared library with a plain C
-interface at first use, into ``build/kernels/`` beside the package (listed
-in ``.gitignore``); ctypes loads it. The library's name carries a hash of
+``nvcc`` compiles each source into an object, all of them at once, and
+links them into one shared library with a plain C interface at first use,
+into ``build/kernels/`` beside the package (listed in ``.gitignore``);
+ctypes loads it. The library's name carries a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one
 is reused. Nothing here runs at import time: the CPU tests import every
 module, and this machine may have no nvcc.
@@ -24,10 +25,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("kernels.cu",)
-HEADERS = ("expansion.cuh",)
+SOURCES = ("kernels.cu", "int8_gemm.cu", "chol.cu")
+HEADERS = ("expansion.cuh", "common.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false"]
 
 _LIB = None
@@ -80,17 +81,37 @@ def build(verbose=False):
     out = BUILD_DIR / f"libclrs_kernels_{_digest()}.so"
     if out.exists():
         return out
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    errs = [o.with_suffix(".log") for o in objs]
     t0 = time.time()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for s, o, e in zip(SOURCES, objs, errs):   # one nvcc per source, at once
+        with open(e, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o),
+                 str(CSRC / s)], stdout=f, stderr=subprocess.STDOUT))
+    rcs = [p.wait() for p in procs]
+    logs = [f"== {s}\n{e.read_text()}" for s, e in zip(SOURCES, errs)]
+    for e in errs:
+        e.unlink()
+    for s, rc, log in zip(SOURCES, rcs, logs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on {s} ({rc}):\n{log[-8000:]}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                       capture_output=True, text=True)
     build_seconds = time.time() - t0
+    for o in objs:
+        o.unlink(missing_ok=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-8000:]}")
-    (BUILD_DIR / "ptxas.log").write_text(r.stderr)
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                           f"{r.stderr[-8000:]}")
+    log = "\n".join(logs)
+    (BUILD_DIR / "ptxas.log").write_text(log)
     if verbose:
-        print(r.stderr)
+        print(log)
     os.replace(tmp, out)
     return out
 

@@ -8,14 +8,14 @@ counts kernel launches and ``<plain>.calls`` counts plain-version calls,
 so a run can show which route it took (:func:`reset_counts`,
 :func:`counts`).
 
-| wrapper            | kernel (csrc/kernels.cu)   | replaces (clrs_tpu/dd/pallas_linalg.py)        |
+| wrapper            | kernel (csrc/kernels.cu unless named) | replaces (clrs_tpu/dd/pallas_linalg.py) |
 |--------------------|----------------------------|------------------------------------------------|
 | limb_extract       | limb_extract_{exp,limbs}   | _extract_call / pl_extract (all four layouts)  |
 | limb_gemm          | limb_gemm_fused            | _limb_gemm_fused_call / pl_limb_gemm_fused     |
-| int8_gemm          | int8_gemm                  | the XLA int8 dot_general (limb_gemm.py:307)    |
+| int8_gemm          | int8_gemm (int8_gemm.cu)   | the XLA int8 dot_general (limb_gemm.py:307)    |
 | cascade_from_c     | cascade<FROM_C>            | _cascade_tiles(_grid)_call / pl_cascade_tiles(_grid) |
 | cascade_from_diags | cascade<FROM_DIAGS>        | _cascade_call / pl_cascade                     |
-| chol_batched       | chol_batched               | _chol_call / pl_cholesky_b                     |
+| chol_batched       | chol_batched (chol.cu)     | _chol_call / pl_cholesky_b                     |
 | tri_solve_batched  | tri_solve_batched<TRANS>   | _tril_call, _tril_t_call / pl_solve_tril(_t)_b |
 | plmap_add          | plmap_add                  | pl_map, corrector sum (solver/step.py:1556)    |
 | plmap_axpy         | plmap_axpy                 | pl_map, state update (solver/step.py:1244)     |
@@ -41,6 +41,7 @@ from . import ops as O
 
 LIMB_BITS = 7
 KERNEL_NW = (5, 6, 7, 8)   # word counts the CUDA kernels are built for
+INT8_GEMM_MAX_K = 1 << 13  # csrc/int8_gemm.cu MAX_K: |C| < 2^31 for limbs <= 65
 _MAX_NW = 8                # csrc/kernels.cu MAX_NW
 
 
@@ -589,6 +590,9 @@ def int8_gemm(a, b):
     N = b.shape[2]
     _check_int("int8_gemm", (a, torch.int8, (Bt, M, K)),
                (b, torch.int8, (Bt, K, N)))
+    if not 0 < K <= INT8_GEMM_MAX_K:
+        raise ValueError(f"int8_gemm: depth K={K} outside 1..{INT8_GEMM_MAX_K},"
+                         " where the int32 product of limbs stays exact")
     a, b = a.contiguous(), b.contiguous()
     c = torch.empty((Bt, M, N), dtype=torch.int32, device=a.device)
     rc = library().clrs_int8_gemm(_ptr(a), _ptr(b), _ptr(c), Bt, M, K, N,

@@ -31,7 +31,7 @@ from . import kernels as K
 LIMB_BITS = K.LIMB_BITS
 # int32 diagonal sums stay exact: limb products <= 65^2 < 2^13, k <= 2^13
 # terms, <= L <= 48 tiles per diagonal
-MAX_K_EXACT = 1 << 13
+MAX_K_EXACT = K.INT8_GEMM_MAX_K
 
 # The JAX package's route threshold on the int32 product C, in bytes
 # (clrs_tpu/dd/limb_gemm.py:52, _PLCASCADE_C_BUDGET). It reproduces the

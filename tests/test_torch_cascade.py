@@ -227,3 +227,28 @@ def test_gemm_route_reproduces_jax_routing(nw):
                 seen.add(route)
     assert seen == {"fused", "split"}
     assert tg.JAX_ROUTE_C_BYTES == lg._PLCASCADE_C_BUDGET
+
+
+def test_int8_product_exact_at_deepest_k_with_extreme_limbs():
+    """The plain int8 product, the reference the card's tensor-core kernel
+    is held to, is exact at the deepest K the split route allows (2^13)
+    with every limb at +-65, where |C| reaches its bound 2^13 65^2: it
+    equals numpy's int64 product and the JAX split route's int8
+    dot_general (clrs_tpu/dd/limb_gemm.py:307) on the same limbs."""
+    k = K.INT8_GEMM_MAX_K
+    assert k == tg.MAX_K_EXACT
+    rng = np.random.default_rng(51)
+    a = (rng.integers(0, 2, (1, 6, k)) * 130 - 65).astype(np.int8)
+    b = (rng.integers(0, 2, (1, k, 5)) * 130 - 65).astype(np.int8)
+    a[0, 0] = 65                                  # |C| at its bound
+    b[0, :, 0] = 65
+    b[0, :, 1] = -65
+    ref = np.einsum("bmk,bkn->bmn", a.astype(np.int64), b.astype(np.int64))
+    assert ref[0, 0, 0] == k * 65 * 65 and ref[0, 0, 1] == -k * 65 * 65
+    c = K.int8_gemm_plain(torch.from_numpy(a), torch.from_numpy(b))
+    assert c.dtype == torch.int32
+    assert np.array_equal(c.numpy().astype(np.int64), ref)
+    cj = jax.lax.dot_general(jnp.asarray(a[0]), jnp.asarray(b[0]),
+                             (((1,), (0,)), ((), ())),
+                             preferred_element_type=jnp.int32)
+    assert np.array_equal(np.asarray(cj), c[0].numpy())

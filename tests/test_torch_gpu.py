@@ -141,6 +141,112 @@ def test_split_route_kernels_match_plain_on_card(nw, cuda):
                  tg.fx_matmul(a, b, route="fused"))
 
 
+def _limbs(rng, shape, extreme):
+    """int8 limbs in [-65, 65], or all +-65 (the largest |C| per term)."""
+    v = (rng.integers(0, 2, shape) * 130 - 65 if extreme
+         else rng.integers(-65, 66, shape))
+    return torch.from_numpy(v.astype(np.int8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, M, k, N, extreme, offset", [
+    (1, 21, 1, 22, True, False),        # one k: a chunk of 31 zeros
+    (1, 40, 31, 50, True, False),
+    (1, 64, 32, 64, True, False),       # one whole chunk, 16-byte A rows
+    (2, 70, 33, 45, True, False),       # a second chunk of one k
+    (1, 40, 8192, 36, True, False),     # the deepest exact K: 256 chunks
+    (4, 462, 11, 21, False, False),     # N = L n with n = 1: narrow tiles
+    (1, 462, 11, 462, False, False),    # the Schur pairing of delsarte(3,10)
+    (1, 97, 20, 130, False, False),     # ragged M and N, 4-byte A rows
+    (3, 100, 48, 260, False, False),    # N % 4 == 0: 4-byte B, 16-byte C
+    (2, 462, 11, 21, False, True),      # views at odd byte offsets
+    (1, 21, 191, 4032, False, True),
+])
+def test_int8_gemm_shapes_match_plain_on_card(B, M, k, N, extreme, offset,
+                                              cuda):
+    """The tensor-core int8 GEMM equals the exact plain product at the
+    depths, widths and alignments its staging and tiles treat apart (with
+    ``offset``, on batch slices whose data start at an odd byte), and each
+    call is one launch."""
+    rng = np.random.default_rng(M + k + N)
+    a = _limbs(rng, (B + offset, M, k), extreme).to(cuda)[offset:]
+    b = _limbs(rng, (B + offset, k, N), extreme).to(cuda)[offset:]
+    if offset:
+        assert a.data_ptr() % 4 or b.data_ptr() % 4
+    K.reset_counts()
+    assert torch.equal(K.int8_gemm(a, b), K.int8_gemm_plain(a, b))
+    assert K.counts()["int8_gemm"] == 1
+
+
+def _indefinite_at(B, n, nw, j, seed):
+    """B SPD members, the last replaced by L D L^T whose pivot j is -1 (its
+    diagonal entry there starts positive): its ok flag must clear at j."""
+    a = np.random.default_rng(seed).standard_normal((B, n, n))
+    v = a @ a.transpose(0, 2, 1) + n * np.eye(n)
+    lu = np.tril(np.random.default_rng(seed + 1).standard_normal((n, n))
+                 * 0.2, -1) + np.eye(n)
+    lu[j, :j] = 1.0
+    d = np.ones(n)
+    d[j] = -1.0
+    v[-1] = lu @ np.diag(d) @ lu.T
+    return split_words(v, nw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw, B, n, bad", [
+    (5, 3, 1, False), (5, 2, 2, False), (5, 1, 63, False), (5, 2, 64, True),
+    (5, 1, 65, False), (5, 2, 95, True),
+    (8, 2, 1, True), (8, 1, 2, False), (8, 2, 63, True), (8, 1, 64, False),
+    (8, 1, 65, False), (8, 2, 95, True),      # nw 8, n 95: W in global memory
+])
+def test_chol_shapes_match_plain_on_card(nw, B, n, bad, cuda):
+    """The look-ahead Cholesky equals the plain version bit for bit, ok
+    flags included, at the sizes where its chain, its shared layout (odd
+    pitch) and its global-memory path differ; with ``bad`` the last member
+    turns indefinite at a middle pivot (at n 1, its only pivot is -1);
+    past it the words may grow to NaN, so bit patterns are compared."""
+    if not bad:
+        A = spd_words(B, n, nw, 60 + n)
+    elif n == 1:
+        A = split_words(np.array([2.0, -1.0]).reshape(B, 1, 1), nw)
+    else:
+        A = _indefinite_at(B, n, nw, n // 2, 60 + n)
+    A = _t(A, cuda)
+    K.reset_counts()
+    Lk, okk = K.chol_batched(A)
+    Lp, okp = K.chol_plain(A)
+    # bit patterns: past a failed pivot the factor may hold NaNs
+    assert torch.equal(okk, okp)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(Lk, Lp))
+    assert okk.tolist() == [True] * (B - bad) + [False] * bad
+    assert K.counts()["chol_batched"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["int8_deep_k", "int8_grid_rows",
+                                  "chol_no_room"])
+def test_refused_launch_raises_on_card(case, cuda):
+    """A shape a kernel refuses raises in its wrapper; nothing is launched
+    and no plain version runs in its place."""
+    K.reset_counts()
+    with pytest.raises((ValueError, RuntimeError)):
+        if case == "int8_deep_k":          # beyond the exact depth 2^13
+            K.int8_gemm(torch.zeros((1, 4, 8193), dtype=torch.int8,
+                                    device=cuda),
+                        torch.zeros((1, 8193, 4), dtype=torch.int8,
+                                    device=cuda))
+        elif case == "int8_grid_rows":     # 65,536 row tiles of 64
+            K.int8_gemm(torch.zeros((1, 64 * 65535 + 1, 1), dtype=torch.int8,
+                                    device=cuda),
+                        torch.zeros((1, 1, 1), dtype=torch.int8, device=cuda))
+        else:                              # coll and rowl exceed 227 KB
+            z = torch.zeros((1, 2000, 2000), device=cuda)
+            K.chol_batched((z,) * 8)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in K.counts().values())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("nw", [5, 6, 7, 8])
 def test_chain_kernels_match_plain_on_card(nw, cuda):

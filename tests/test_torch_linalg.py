@@ -56,6 +56,32 @@ def test_solves_bit_identical_to_pallas_kernels(trans, xla_subnormals):
         assert np.array_equal(np.asarray(a), b.numpy())
 
 
+def test_cholesky_matches_pallas_kernel_through_failed_pivot(xla_subnormals):
+    """A member whose pivot turns non-positive at j = 3 (its diagonal
+    entry there starts positive): the source replaces the pivot by 1 and
+    clears the member's ok flag, then factors on. The plain Cholesky (the
+    reference of the card's kernel) against the interpreted pl_cholesky_b
+    at nw 3, n 6: the same ok flags, the leading words exactly, all words
+    to the tolerance of the module docstring."""
+    nw, n = 3, 6
+    rng = np.random.default_rng(9)
+    Lu = np.tril(rng.standard_normal((n, n)) * 0.3, -1) + np.eye(n)
+    Lu[3, :3] = (1.0, 0.5, 0.7)
+    d = np.array([1.0, 2.0, 1.5, -1.0, 1.0, 3.0])   # the pivots in exact arithmetic
+    bad = Lu @ np.diag(d) @ Lu.T
+    assert bad[3, 3] > 0
+    good = spd_words(1, n, nw, seed=8)
+    A = [np.concatenate([g, w[None]]) for g, w in zip(good,
+                                                     split_words(bad, nw))]
+    Lj, okj = P.pl_cholesky_b(tuple(map(jnp.asarray, A)))
+    Lt, okt = K.chol_plain(_t(A))
+    assert np.asarray(okj).tolist() == okt.tolist() == [True, False]
+    ref = _val(Lj)
+    err = np.max(np.abs(ref - _val(Lt)))
+    assert err <= 2.0 ** -(24 * nw - 8) * np.max(np.abs(ref)), err
+    assert np.array_equal(np.asarray(Lj[0]), Lt[0].numpy())
+
+
 def test_cholesky_flags_indefinite_member():
     A = spd_words(3, 4, 5, seed=2)
     A[0][1, 3, 3] = -50.0

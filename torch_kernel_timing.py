@@ -1,0 +1,182 @@
+"""Time one of the port's kernels at every shape one IPM iteration gives it.
+
+Runs ``--iters`` iterations of delsarte(3, d) on the card with the calls of
+the kernel recorded on their way to its wrapper: the triangular solve and
+the Cholesky through ``clrs_tpu_torch.dd.linalg`` (every caller of both;
+``--kernel tri`` records (nw, B, n, m, trans), ``--kernel chol`` (nw, B,
+n)), the split route's int8 product through ``clrs_tpu_torch.dd.limb_gemm``
+(its only caller; ``--kernel int8_gemm`` records (B, M, K, N)). Then it
+times the kernel at every recorded shape on random inputs of that shape
+with chip_smoke.py's ``time_ms`` (CUDA events around calls queued behind a
+spin kernel): a solve on an SPD matrix's factor from the plain Cholesky and
+standard normal right-hand sides, the Cholesky on SPD matrices, the int8
+product on limbs drawn from [-65, 65]. ``--kernel`` takes a comma list
+(one solve records them all); ``--shape kernel:a,b,...`` times a shape
+of that kernel besides (``--d 0``: no solve, only those). Prints one
+JSON line per kernel: per shape the calls per iteration, ms per call and
+ms per iteration, and their sum (per form for the solve). The package and
+chip_smoke.py are imported from beside the script, so a copy of it in
+another checkout times that checkout's kernels. On a machine with a card:
+
+    python3 torch_kernel_timing.py --kernel tri --d 95 --iters 1
+    python3 torch_kernel_timing.py --kernel chol,int8_gemm --d 95 --iters 1
+    python3 torch_kernel_timing.py --kernel chol --d 0 --shape chol:5,2,64
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import sys
+from fractions import Fraction
+from pathlib import Path
+
+# kernel -> (module attribute of clrs_tpu_torch.dd whose K is recorded,
+# wrapper name)
+RECORDED = {"tri": ("linalg", "tri_solve_batched"),
+            "chol": ("linalg", "chol_batched"),
+            "int8_gemm": ("limb_gemm", "int8_gemm")}
+
+
+def _shape(kernel, args, kw):
+    """The recorded key of one call."""
+    if kernel == "tri":
+        l, b = args[:2]
+        trans = kw.get("trans", args[2] if len(args) > 2 else False)
+        return (len(l),) + tuple(l[0].shape[:2]) + (b[0].shape[2],
+                                                    bool(trans))
+    if kernel == "chol":
+        (a,) = args
+        return (len(a),) + tuple(a[0].shape[:2])
+    a, b = args
+    return tuple(a.shape) + (b.shape[2],)
+
+
+def _call(kernel, key, rng, S, K):
+    """A zero-argument call of the kernel at shape ``key`` on random
+    inputs."""
+    import numpy as np
+    import torch
+
+    if kernel == "tri":
+        nw, B, n, m, trans = key
+        lw, _ = K.chol_plain(S._spd(rng, B, n, nw))
+        bw = S._words(rng, (B, n, m), nw)
+        return lambda: K.tri_solve_batched(lw, bw, trans)
+    if kernel == "chol":
+        nw, B, n = key
+        a = S._spd(rng, B, n, nw)
+        return lambda: K.chol_batched(a)
+    B, M, k, N = key
+    a, b = (torch.from_numpy(rng.integers(-65, 66, s).astype(np.int8))
+            .to("cuda") for s in ((B, M, k), (B, k, N)))
+    return lambda: K.int8_gemm(a, b)
+
+
+def _fields(kernel, key):
+    names = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
+             "int8_gemm": ("B", "M", "K", "N")}[kernel]
+    return dict(zip(names, key))
+
+
+def record(kernel, run):
+    """Calls of ``kernel`` per shape while ``run()`` runs: its caller's
+    kernels module is wrapped in one that counts the wrapper's shapes on
+    their way to it (recordings nest)."""
+    import importlib
+
+    modname, wrapper = RECORDED[kernel]
+    caller = importlib.import_module(f"clrs_tpu_torch.dd.{modname}")
+    inner = caller.K
+    seen = collections.Counter()
+
+    class Recording:
+        def __getattr__(self, name):
+            fn = getattr(inner, name)
+            if name != wrapper:
+                return fn
+
+            def recorded(*a, **kw):
+                seen[_shape(kernel, a, kw)] += 1
+                return fn(*a, **kw)
+
+            return recorded
+
+    caller.K = Recording()
+    try:
+        run()
+    finally:
+        caller.K = inner
+    return seen
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", default="tri",
+                    help=f"comma list of {', '.join(sorted(RECORDED))}")
+    ap.add_argument("--d", type=int, default=10)
+    ap.add_argument("--iters", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--shape", action="append", default=[],
+                    help="kernel:a,b,... timed besides the recorded shapes")
+    args = ap.parse_args()
+    kernels = args.kernel.split(",")
+    extra = [(k, tuple(int(v) for v in dims.split(",")))
+             for k, dims in (x.split(":") for x in args.shape)]
+    for k in kernels + [k for k, _ in extra]:
+        if k not in RECORDED:
+            ap.error(f"unknown kernel {k!r}")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as S
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.examples import delsarte_problem
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    seen = {k: collections.Counter() for k in kernels}
+    if args.d:
+        problem = delsarte_problem(3, args.d, Fraction(1, 2))
+
+        def run(ks):
+            if not ks:
+                return ct.solvesdp(
+                    problem, device="cuda", omega_p=100, omega_d=100,
+                    dual_error_threshold=1e-12,
+                    primal_error_threshold=1e-12,
+                    maxiterations=args.iters, verbose=False)
+            seen[ks[0]] = record(ks[0], lambda: run(ks[1:]))
+
+        run(kernels)
+    rng = np.random.default_rng(0)
+    for k in dict.fromkeys(kernels + [k for k, _ in extra]):
+        rows, sums = [], collections.Counter()
+        keys = list(sorted(seen.get(k, {}).items())) + [
+            (key, 0) for kk, key in extra if kk == k]
+        for key, calls in keys:
+            ms = S.time_ms(_call(k, key, rng, S, K), args.reps)
+            per_it = calls / args.iters
+            rows.append(dict(_fields(k, key), calls_per_iteration=per_it,
+                             ms=ms, ms_per_iteration=per_it * ms))
+            form = ("transposed" if key[-1] else "forward") \
+                if k == "tri" else "all"
+            sums[form] += per_it * ms
+        print(json.dumps({
+            "card": card, "checkout": str(Path(__file__).resolve().parent),
+            "kernel": k, "problem": f"delsarte(3,{args.d})" if args.d
+            else None, "iters": args.iters, "shapes": rows,
+            "ms_per_iteration": dict(sorted(sums.items())),
+        }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

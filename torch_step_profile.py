@@ -81,7 +81,7 @@ def main():
         c, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
     busy = sum(t for _, t in by_name.values()) / N
-    # the port's own kernels (csrc/kernels.cu keeps them in a top-level
+    # the port's own kernels (each source of csrc/ keeps them in a top-level
     # anonymous namespace; PyTorch's lie under at::), by name and template
     # arguments
     port = {}
