@@ -10,13 +10,13 @@ Phases (one line each; any failure exits non-zero):
      source, all at once), with its seconds;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the main path, at nw = 5 and 8 and at the edge shapes each
-     kernel treats apart (bit-identical is the tolerance, ok flags
-     included), the split GEMM route against the fused one, and at its
-     main-path shapes (at least one per TPU kernel it replaces; every
-     int8_gemm shape of a delsarte(3,95) iteration) its time, its plain
-     version's time (time_ms), its bound on this card (bound) and a
-     library call's time where one PyTorch call computes the same
-     function;
+     kernel treats apart (bit-identical is the tolerance, ok flags and the
+     extraction's NaN rows and columns included), the split GEMM route
+     against the fused one, and at its main-path shapes (at least one per
+     TPU kernel it replaces; every int8_gemm, limb_gemm and limb_extract
+     shape of a delsarte(3,95) iteration) its time, its plain version's
+     time (time_ms), its bound on this card (bound) and a library call's
+     time where one PyTorch call computes the same function;
   4. delsarte(3, 10) through clrs_tpu_torch.solvesdp (the card is its
      default device): error code 0, Optimal, objective within 1e-9 of
      13.15831434739031, every kernel of its path launched (counts set to 0
@@ -63,7 +63,10 @@ def time_ms(fn, reps=5):
     runs the calls back to back, so the host's time between launches does
     not count while the launch queue holds them; a plain version that
     issues thousands of launches per call overflows the queue, and its time
-    is the host's."""
+    is the host's. The garbage collector is held off while the calls are
+    issued: a collection longer than the spin would be timed."""
+    import gc
+
     import torch
 
     fn()
@@ -74,12 +77,18 @@ def time_ms(fn, reps=5):
     spin_s = min(2 * reps * (time.perf_counter() - h0), 0.2)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+    finally:
+        if collecting:
+            gc.enable()
     return t0.elapsed_time(t1) / reps
 
 
@@ -291,6 +300,29 @@ def _indefinite(rng, B, n, nw):
     return _split(v, nw)
 
 
+def _edge_words(rng, shape, nw, kind):
+    """nw f32 words [B, d0, d1] on the card for the extraction's edges: a
+    NaN in word 0 of row 1 and of column 2 ("nan"), zero rows and columns
+    ("zero"), a row and a column above 2^126 ("huge"), else rows scaled by
+    powers of ten."""
+    import numpy as np
+
+    v = rng.standard_normal(shape) * 10.0 ** rng.integers(-4, 4, shape)
+    if kind == "zero":
+        v[:, 0] = 0.0
+        v[:, :, -1] = 0.0
+    elif kind == "huge":
+        v[:, -1] *= 3e38 / np.abs(v[:, -1]).max()
+        v[:, :, 0] *= 1e38 / np.abs(v[:, :, 0]).max()
+    ws = _split(v, nw)
+    if kind == "nan":
+        w0 = ws[0].clone()
+        w0[:, 1 % shape[1], 0] = float("nan")
+        w0[:, -1, 2 % shape[2]] = float("nan")
+        ws = (w0,) + ws[1:]
+    return ws
+
+
 def _limbs(rng, shape, extreme=False):
     """int8 limbs on the card: drawn from [-65, 65], or all +-65."""
     import numpy as np
@@ -393,6 +425,32 @@ INT8_SHAPES_3_95 = ((1, 21, 191, 4032), (1, 21, 192, 21), (1, 1344, 64, 21),
                     (2, 672, 64, 2016), (4, 672, 64, 672), (4, 672, 64, 2016))
 
 
+LIMB_REPS = 20   # the extraction and the fused limb GEMM: microseconds a call
+# (nw, B, m, k, n) of every limb_gemm call and (nw, B, d0, d1, side, layout)
+# of every limb_extract call in the first iteration of delsarte(3,95)
+# (torch_kernel_timing.py --kernel limb_gemm,limb_extract --d 95 --iters 1)
+LIMB_GEMM_SHAPES_3_95 = (
+    (5, 1, 128, 64, 128), (5, 1, 192, 191, 192), (5, 1, 64, 64, 64),
+    (5, 2, 192, 96, 96), (5, 2, 64, 32, 96), (5, 2, 96, 192, 96),
+    (5, 2, 96, 96, 96), (5, 4, 192, 96, 192), (5, 4, 192, 96, 96))
+EXTRACT_SHAPES_3_95 = (
+    (5, 1, 1, 1, "b", "gemm"), (5, 1, 1, 191, "a", "gemm"),
+    (5, 1, 1, 192, "a", "gemm"), (5, 1, 128, 1, "b", "gemm"),
+    (5, 1, 128, 64, "a", "limb"), (5, 1, 191, 192, "a", "gemm"),
+    (5, 1, 191, 192, "b", "gemm"), (5, 1, 191, 192, "b", "limb"),
+    (5, 1, 192, 1, "a", "gemm"), (5, 1, 192, 1, "b", "gemm"),
+    (5, 1, 192, 191, "a", "limb"), (5, 1, 64, 1, "b", "gemm"),
+    (5, 1, 64, 128, "a", "gemm"), (5, 1, 64, 128, "b", "limb"),
+    (5, 1, 64, 64, "a", "gemm"), (5, 1, 64, 64, "a", "limb"),
+    (5, 1, 64, 64, "b", "limb"), (5, 2, 32, 64, "a", "gemm"),
+    (5, 2, 32, 96, "b", "limb"), (5, 2, 64, 32, "a", "limb"),
+    (5, 2, 64, 96, "b", "gemm"), (5, 2, 96, 192, "a", "limb"),
+    (5, 2, 96, 96, "a", "limb"), (5, 2, 96, 96, "b", "limb"),
+    (5, 4, 192, 96, "a", "limb"), (5, 4, 32, 64, "a", "gemm"),
+    (5, 4, 64, 32, "b", "gemm"), (5, 4, 64, 96, "b", "gemm"),
+    (5, 4, 96, 96, "b", "limb"))
+
+
 def _pad32(A, B):
     """One batch element of int8 operands [1, M, K] and [1, K, N], every
     dimension zero-padded to a multiple of 32 (the product's top-left
@@ -451,8 +509,43 @@ def compare_kernels():
                          K.limb_extract_plain, (w, L, side, layout),
                          dict(nw=nw, B=B, d0=d0, d1=d1, side=side,
                               layout=layout),
-                         cost_extract(nw, L, B, d0, d1, side) if t else None)
+                         cost_extract(nw, L, B, d0, d1, side) if t else None,
+                         reps=LIMB_REPS)
+    # untimed at the edges its exponent reduction and its tiles treat
+    # apart: a NaN in word 0 of a row and of a column (e = 130, as amax
+    # gives), zero rows and columns, values above 2^126, k = 1, k = 2^13
+    # along a row (tiles that share it) and down a column, nw 5-8, and
+    # transposed views (each word read through its strides)
+    for nw, (B, d0, d1), kind in ((5, (2, 6, 9), "nan"),
+                                  (8, (3, 5, 12), "nan"),
+                                  (6, (3, 7, 5), "zero"),
+                                  (7, (2, 5, 12), "huge"),
+                                  (5, (3, 4, 1), "plain"),
+                                  (8, (1, 3, 8192), "plain"),
+                                  (6, (1, 8192, 5), "plain"),
+                                  (5, (2, 96, 40), "transposed")):
+        L, _ = K.limb_params(nw)
+        if kind == "transposed":
+            w = tuple(c.transpose(1, 2) for c in
+                      _edge_words(rng, (B, d1, d0), nw, kind))
+        else:
+            w = _edge_words(rng, (B, d0, d1), nw, kind)
+        for side in ("a", "b"):
+            for layout in ("limb", "gemm"):
+                ks.check("limb_extract", rep_ext, K.limb_extract,
+                         K.limb_extract_plain, (w, L, side, layout),
+                         dict(nw=nw, B=B, d0=d0, d1=d1, side=side,
+                              layout=layout, kind=kind))
+    for nw, B, d0, d1, side, layout in EXTRACT_SHAPES_3_95:
+        L, _ = K.limb_params(nw)
+        w = _words(rng, (B, d0, d1), nw, scale_rows=True)
+        ks.check("limb_extract", rep_ext, K.limb_extract,
+                 K.limb_extract_plain, (w, L, side, layout),
+                 dict(nw=nw, B=B, d0=d0, d1=d1, side=side, layout=layout,
+                      delsarte_3_95=True),
+                 cost_extract(nw, L, B, d0, d1, side), reps=LIMB_REPS)
     # fused limb GEMM (operands extracted by the plain version)
+    rep_lg = f"{PL}:552 (_limb_gemm_fused_call)"
     for nw, (B, m, k, n), timed in ((5, (4, 22, 22, 22), False),
                                     (5, (2, 192, 64, 192), True),
                                     (8, (2, 40, 33, 17), False)):
@@ -462,10 +555,51 @@ def compare_kernels():
         A3, ea = K.limb_extract_plain(a, L, "a")
         B3, eb = K.limb_extract_plain(b, L, "b")
         eab = (ea + eb).expand(B, m, n).contiguous()
-        ks.check("limb_gemm", f"{PL}:552 (_limb_gemm_fused_call)",
-                 K.limb_gemm, K.limb_gemm_plain, (A3, B3, eab, nw),
-                 dict(nw=nw, B=B, m=m, k=k, n=n),
-                 cost_limb_gemm(nw, L, ndiag, B, m, k, n) if timed else None)
+        ks.check("limb_gemm", rep_lg, K.limb_gemm, K.limb_gemm_plain,
+                 (A3, B3, eab, nw), dict(nw=nw, B=B, m=m, k=k, n=n),
+                 cost_limb_gemm(nw, L, ndiag, B, m, k, n) if timed else None,
+                 reps=LIMB_REPS)
+    # untimed at the depths (k 1, 31, 32, 33 and 2^13 with every limb at
+    # +-65: the largest diagonal sums), ragged m and n (17, 9, 1), A rows
+    # that are not 4-byte aligned (k 1, 31, 33, 37), both tiles (16x16 from
+    # 264 blocks of it), B 4 and nw 5-8 (each its own number of diagonal
+    # fragments), and on a right operand from host_precompute (the pre_b
+    # path)
+    for nw, (B, m, k, n) in ((5, (1, 2, 1, 3)), (5, (1, 17, 31, 9)),
+                             (6, (2, 33, 32, 17)), (7, (1, 9, 33, 1)),
+                             (8, (1, 5, 8192, 3)), (5, (4, 40, 20, 24)),
+                             (6, (4, 17, 64, 9)), (7, (2, 1, 40, 33)),
+                             (8, (2, 40, 64, 48)), (6, (4, 160, 64, 160)),
+                             (7, (4, 192, 32, 176)), (8, (4, 192, 37, 192))):
+        L, _ = K.limb_params(nw)
+        extreme = k in (1, 31, 32, 33, 8192)
+        a3 = _limbs(rng, (B, L, m, k), extreme)
+        b3 = _limbs(rng, (B, L, k, n), extreme)
+        eab = torch.from_numpy(rng.integers(-8, 9, (B, m, n))
+                               .astype(np.int32)).to("cuda")
+        ks.check("limb_gemm", rep_lg, K.limb_gemm, K.limb_gemm_plain,
+                 (a3, b3, eab, nw), dict(nw=nw, B=B, m=m, k=k, n=n,
+                                         extreme=extreme))
+    for nw, (m, k, n) in ((5, (64, 64, 192)), (8, (20, 37, 11))):
+        L, _ = K.limb_params(nw)
+        A3, ea = K.limb_extract_plain(_words(rng, (1, m, k), nw, True), L, "a")
+        bv = rng.standard_normal((k, n))
+        pre = tg.host_precompute(tuple(c[0].cpu().numpy() for c in
+                                       _split(bv[None], nw)), nw, axis=0)
+        B3, eb = (torch.from_numpy(x)[None].to("cuda") for x in pre)
+        eab = (ea + eb).expand(1, m, n).contiguous()
+        ks.check("limb_gemm", rep_lg, K.limb_gemm, K.limb_gemm_plain,
+                 (A3, B3, eab, nw), dict(nw=nw, B=1, m=m, k=k, n=n,
+                                         pre_b=True))
+    for nw, B, m, k, n in LIMB_GEMM_SHAPES_3_95:
+        L, ndiag = K.limb_params(nw)
+        A3, ea = K.limb_extract_plain(_words(rng, (B, m, k), nw, True), L, "a")
+        B3, eb = K.limb_extract_plain(_words(rng, (B, k, n), nw), L, "b")
+        eab = (ea + eb).expand(B, m, n).contiguous()
+        ks.check("limb_gemm", rep_lg, K.limb_gemm, K.limb_gemm_plain,
+                 (A3, B3, eab, nw), dict(nw=nw, B=B, m=m, k=k, n=n,
+                                         delsarte_3_95=True),
+                 cost_limb_gemm(nw, L, ndiag, B, m, k, n), reps=LIMB_REPS)
     # the split route: int8 product C and the cascade from C, at a C within
     # the JAX route threshold (the Schur pairs of delsarte(3,10);
     # pl_cascade_tiles there) and above it with m, n no multiple of any tile

@@ -46,46 +46,6 @@ namespace {
 constexpr int GK = 32;          // k depth of one mma step and one stage
 constexpr int KP = 48;          // bytes per staged row of A or of B^T
 constexpr int G_THREADS = 128;  // four warps
-constexpr int MAX_K = 1 << 13;  // the depth at which C stays exact
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// BYTES-byte asynchronous copy global -> shared; zero fill where !valid
-// (src is then not read).
-template <int BYTES>
-__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Four bytes p[0..3] of a row, each masked to 0 where its index is out of
-// range (a ragged row). (Loading the aligned words around them and
-// permuting the bytes did not pay on an H100.)
-__device__ __forceinline__ unsigned load4_bytes(const int8_t* p, int valid) {
-  unsigned v = 0;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (c < valid) v |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(p + c))) << (8 * c);
-  return v;
-}
 
 // A tile of BM x BN outputs: WM x WN warps, each MT x NT mma tiles of 16 x 8.
 // avec (16, 4 or 1): bytes per A staging unit; bvec (4 or 1): bytes per B
@@ -159,15 +119,8 @@ __global__ void __launch_bounds__(G_THREADS)
         else
           rw[i] = load4_bytes(p, N - j);
       }
-      // 4x4 byte transpose: breg[e][c] holds B[k0 + 4q + 0..3][j + c]
-      const unsigned lo01 = __byte_perm(rw[0], rw[1], 0x5140);
-      const unsigned hi01 = __byte_perm(rw[0], rw[1], 0x7362);
-      const unsigned lo23 = __byte_perm(rw[2], rw[3], 0x5140);
-      const unsigned hi23 = __byte_perm(rw[2], rw[3], 0x7362);
-      breg[e][0] = __byte_perm(lo01, lo23, 0x5410);
-      breg[e][1] = __byte_perm(lo01, lo23, 0x7632);
-      breg[e][2] = __byte_perm(hi01, hi23, 0x5410);
-      breg[e][3] = __byte_perm(hi01, hi23, 0x7632);
+      // breg[e][c] holds B[k0 + 4q + 0..3][j + c]
+      transpose_4x4_bytes(rw, breg[e]);
     }
   };
   // Stores the register-held part of the chunk into stage s.
@@ -274,10 +227,6 @@ int launch(const int8_t* a, const int8_t* b, int* c, int B, int M, int K, int N,
   return 0;
 }
 
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -285,7 +234,7 @@ extern "C" {
 int clrs_int8_gemm(const int8_t* a, const int8_t* b, int* c, int B, int M, int K, int N,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || M <= 0 || K <= 0 || N <= 0 || B > 65535 || K > MAX_K)
+  if (B <= 0 || M <= 0 || K <= 0 || N <= 0 || B > 65535 || K > MAX_K_EXACT)
     return static_cast<int>(cudaErrorInvalidValue);
   const int avec = (K % 16 == 0 && aligned(a, 16)) ? 16 : (K % 4 == 0 && aligned(a, 4)) ? 4 : 1;
   const int bvec = (N % 4 == 0 && aligned(b, 4)) ? 4 : 1;

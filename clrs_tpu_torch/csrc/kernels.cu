@@ -5,21 +5,24 @@
 // its own) launches on the caller's stream, synchronises nothing,
 // allocates nothing and returns cudaGetLastError(). Word counts NW = 5..8
 // are instantiated (the f32 substrate's ladder); other values return
-// cudaErrorInvalidValue. Tensors are stacked word-major: [B, NW, rows, cols].
+// cudaErrorInvalidValue. Word tensors are stacked word-major, [B, NW, rows,
+// cols], except where a kernel reads each word where it lies (the
+// extraction, the pl_map chains).
 //
-// limb_extract_{exp,limbs}  replaces clrs_tpu/dd/pallas_linalg.py
+// limb_extract              replaces clrs_tpu/dd/pallas_linalg.py
 //   _extract_call / pl_extract (all four layouts: 'a3'/'b3'/'a' limb-major,
-//   'b' as the [d0, L d1] GEMM operand). Bound by its elementwise
-//   work: L rounds of an (NW)-word vec_sum per element. One thread per
-//   element keeps the words in registers; the per-row/column exponent is a
-//   separate small reduction kernel.
-// limb_gemm_fused           replaces _limb_gemm_fused_call / pl_limb_gemm_fused.
-//   Bound by the int8 products (sum over kept diagonals of pairs x m n k)
-//   and then the per-element cascade. 16x16 output tiles per block; all L
-//   limbs of a 32-deep k chunk of A rows and B columns staged in shared
-//   memory; every diagonal's int32 sum accumulates exactly in registers with
-//   __dp4a; the cascade runs per output element in registers. Ragged m/n/k
-//   edges are masked, not padded.
+//   'b' as the [d0, L d1] GEMM operand). At the main path's sizes (a few
+//   thousand elements) bound by latency: the per-row (side a) or
+//   per-column (side b) exponent, a reduction over the whole row or column
+//   of word 0, then each element's chain of L rounds of an NW-word vec_sum
+//   (about 10 dependent operations a round). One launch per call, reading
+//   each word where it lies through its strides (no stacked copy): each
+//   block reduces the exponents its tile needs in parallel (coalesced
+//   loads, atomicMax on the sign-cleared bit patterns in shared memory,
+//   which reproduces amax exactly, NaN included), then extracts its tile,
+//   one element a thread.
+// limb_gemm_fused           replaces _limb_gemm_fused_call / pl_limb_gemm_fused:
+//   csrc/limb_gemm.cu (int8 tensor cores, the cascade in registers).
 // int8_gemm                 the split route's int8 product: csrc/int8_gemm.cu.
 // cascade<FROM_C>           replaces _cascade_tiles_call / pl_cascade_tiles
 //   and _cascade_tiles_grid_call / pl_cascade_tiles_grid: the diagonal sums
@@ -55,195 +58,137 @@
 
 #include "common.cuh"
 #include "expansion.cuh"
+#include "limbs.cuh"
 
 using namespace clrs;
 
 namespace {
 
-constexpr int LIMB_BITS = 7;
-
-__host__ __device__ constexpr int limb_count(int nw) {
-  return (24 * nw + 21 + LIMB_BITS - 1) / LIMB_BITS;
-}
-__host__ __device__ constexpr int ndiag_count(int nw) {
-  return (2 * limb_count(nw) - 1) < ((24 * nw + 21) / LIMB_BITS + 1)
-             ? (2 * limb_count(nw) - 1)
-             : ((24 * nw + 21) / LIMB_BITS + 1);
-}
-
 // ---------------------------------------------------------------------------
 // limb extraction
 // ---------------------------------------------------------------------------
 
-// Per row (side a) or per column (side b) of word 0: e with
-// |word0| * 2^-e <= 1/2, from the bits of max|word0| (1 where it is 0).
-__global__ void limb_extract_exp(const float* __restrict__ W, int* __restrict__ E,
-                                 int B, int nw, int d0, int d1, int side_a) {
-  const int rows = side_a ? d0 : d1;
-  const long t = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long>(B) * rows) return;
-  const int b = static_cast<int>(t / rows);
-  const int r = static_cast<int>(t % rows);
-  const float* w0 = W + static_cast<size_t>(b) * nw * d0 * d1;
-  float mag = 0.0f;
+constexpr int MAX_NW = 8;
+constexpr int EX_THREADS = 128;
+constexpr int EX_MAX_SPLIT = 16;  // tiles sharing one row (side a) or column (side b)
+
+// The NW word tensors of an operand, each [B, d0, d1] where it lies, with
+// its own element strides (any view: transposed, sliced or broadcast).
+struct WordPtrs {
+  const float* w[MAX_NW];
+  long long s[MAX_NW][3];
+};
+
+// e with |word0| * 2^-e <= 1/2 from the sign-cleared bits of max|word0| of a
+// row or column (1 where it is 0). The maximum of the sign-cleared bit
+// patterns is amax's, NaN included: a NaN's bits exceed every number's and
+// infinity's, and its exponent field, 255, gives e = 130, as in
+// limb_extract_plain and clrs_tpu's _row_exp_f32.
+__device__ __forceinline__ int exp_of_maxbits(unsigned bits) {
+  if (bits == 0u) bits = __float_as_uint(1.0f);
+  return static_cast<int>((bits >> 23) & 0xFFu) - 125;
+}
+
+__device__ __forceinline__ unsigned abs_bits(float x) { return __float_as_uint(x) & 0x7FFFFFFFu; }
+
+__device__ __forceinline__ unsigned max_u(unsigned a, unsigned b) { return a > b ? a : b; }
+
+// One launch per call. Block (x, y) of batch member z covers the tile of
+// rows [y TR, y TR + TR) and columns [x TC, x TC + TC) of the [d0, d1]
+// plane, TR = RT rpt and TC = CQ cpt with RT CQ = EX_THREADS: thread
+// t = rr CQ + cq owns the elements at tile row rr + RT a and tile column
+// cq + CQ c, a < rpt, c < cpt. The words of its first element are loaded
+// first, so that their latency overlaps pass 1's. Pass 1: the exponents of
+// the tile's rows (side a, rpt = 1: each thread takes every CQ-th element
+// of its row) or columns (side b, cpt = 1: every RT-th row of its column),
+// each over the whole row or column of word 0 with coalesced loads,
+// reduced into shared memory by atomicMax on the bit patterns (exact and
+// order-free). Tiles that split a row (column) each read all of it again,
+// mostly from L2; the launcher keeps that to EX_MAX_SPLIT tiles. Pass 2:
+// each element scaled by its exponent, then L rounds of x128, vec_sum,
+// round half to even and subtract. Limbs go limb-major [L, d0, d1] (the
+// 'a3'/'b3' layouts, and 'a' [L d0, d1], which is the same memory) or,
+// with b_gemm, as the 'b' GEMM operand [d0, L d1] (limb t of element
+// (i, j) at column t d1 + j); a warp's stores of one limb are consecutive
+// bytes. One element a thread: at the main path's shapes the kernel waits
+// on its chain's latency, not on issue, so on an H100 more threads with one
+// chain each beat fewer threads that interleave two or four.
+template <int NW>
+__global__ void __launch_bounds__(EX_THREADS)
+    limb_extract(WordPtrs W, int8_t* __restrict__ limbs, int* __restrict__ E, int d0, int d1,
+                 int side_a, int b_gemm, int cq_n, int rpt, int cpt) {
+  constexpr int L = limb_count(NW);
+  __shared__ unsigned mx[EX_THREADS];  // exponent bits of the tile's TR (side a) or TC groups
+  const int CQ = cq_n, RT = EX_THREADS / cq_n;
+  const int TR = RT * rpt, TC = CQ * cpt;
+  const int tid = threadIdx.x, cq = tid % CQ, rr = tid / CQ;
+  const int b = blockIdx.z, r0 = blockIdx.y * TR, c0 = blockIdx.x * TC;
+  const size_t plane = static_cast<size_t>(d0) * d1;
+  const int ngroups = side_a ? TR : TC;
+  for (int q = tid; q < ngroups; q += EX_THREADS) mx[q] = 0u;
+
+  auto at = [&](int w, int i, int j) {
+    return __ldg(W.w[w] + b * W.s[w][0] + i * W.s[w][1] + j * W.s[w][2]);
+  };
+  float raw[NW];
+  auto load_words = [&](int i, int j) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) raw[w] = at(w, i, j);
+  };
+  if (r0 + rr < d0 && c0 + cq < d1) load_words(r0 + rr, c0 + cq);
+  __syncthreads();
+
   if (side_a) {
-    for (int j = 0; j < d1; ++j) mag = fmaxf(mag, fabsf(w0[static_cast<size_t>(r) * d1 + j]));
+    const int i = r0 + rr;
+    if (i < d0) {
+      unsigned m = 0u;
+#pragma unroll 4
+      for (int j = cq; j < d1; j += CQ) m = max_u(m, abs_bits(at(0, i, j)));
+      atomicMax(&mx[rr], m);
+    }
   } else {
-    for (int i = 0; i < d0; ++i) mag = fmaxf(mag, fabsf(w0[static_cast<size_t>(i) * d1 + r]));
-  }
-  if (mag == 0.0f) mag = 1.0f;
-  E[t] = static_cast<int>((__float_as_uint(mag) >> 23) & 0xFFu) - 125;
-}
-
-// Limbs of batch b go limb-major, [L, d0, d1] (the 'a3'/'b3' layouts, and
-// 'a' [L d0, d1], which is the same memory), or with b_gemm as the 'b' GEMM
-// operand [d0, L d1] (limb t of element (i, j) at column t d1 + j).
-template <int NW>
-__global__ void limb_extract_limbs(const float* __restrict__ W, const int* __restrict__ E,
-                                   int8_t* __restrict__ limbs, int B, int d0, int d1,
-                                   int side_a, int b_gemm) {
-  constexpr int L = limb_count(NW);
-  const long t = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long per = static_cast<long>(d0) * d1;
-  if (t >= B * per) return;
-  const int b = static_cast<int>(t / per);
-  const long ij = t % per;
-  const int i = static_cast<int>(ij / d1);
-  const int j = static_cast<int>(ij % d1);
-  const int e = side_a ? E[static_cast<long>(b) * d0 + i] : E[static_cast<long>(b) * d1 + j];
-  float ws[NW];
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-    ws[w] = mul_pow2_word<4>(W[(static_cast<long>(b) * NW + w) * per + ij], -e);
-  int8_t* out = limbs + static_cast<long>(b) * L * per +
-                (b_gemm ? static_cast<long>(i) * L * d1 + j : ij);
-  const long lstride = b_gemm ? d1 : per;
-#pragma unroll 1
-  for (int l = 0; l < L; ++l) {
-#pragma unroll
-    for (int w = 0; w < NW; ++w) ws[w] = fmul(ws[w], 128.0f);
-    vec_sum<NW>(ws);
-    const float d = rintf(ws[0]);  // round half to even
-    ws[0] = fsub(ws[0], d);
-    out[static_cast<long>(l) * lstride] = static_cast<int8_t>(static_cast<int>(d));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the diagonal cascade (pallas_linalg.py _cascade_fold / _cascade_out)
-// ---------------------------------------------------------------------------
-
-// Folds the int32 diagonal sums diag(d), d = 0..ND-1, most significant
-// first, into an (NW+2)-word carry: each sum is split into two exactly-f32
-// halves, scaled by 2^(eab - 7(d+2)) and swept in with one vec_sum. Then two
-// sweeps and the sequential tail fold give NW words. Shared by every kernel
-// that ends in the cascade, so they agree bit for bit by construction.
-template <int NW, typename Diag>
-__device__ __forceinline__ void cascade_fold(Diag diag, int eab, float* out) {
-  constexpr int ND = ndiag_count(NW);
-  float acc[NW + 2];
-#pragma unroll
-  for (int w = 0; w < NW + 2; ++w) acc[w] = 0.0f;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    const int tile = diag(d);
-    const int hi_i = tile >> 15;  // floor shift
-    const int lo_i = tile - (hi_i << 15);
-    const int sc = eab - LIMB_BITS * (d + 2);
-    float cs[NW + 4];
-#pragma unroll
-    for (int w = 0; w < NW + 2; ++w) cs[w] = acc[w];
-    cs[NW + 2] = mul_pow2_word<4>(fmul(__int2float_rn(hi_i), 32768.0f), sc);
-    cs[NW + 3] = mul_pow2_word<4>(__int2float_rn(lo_i), sc);
-    vec_sum<NW + 4>(cs);
-    const float low = fadd(cs[NW + 2], cs[NW + 3]);
-#pragma unroll
-    for (int w = 0; w < NW + 2; ++w) acc[w] = cs[w];
-    acc[NW + 1] = fadd(acc[NW + 1], low);
-  }
-  vec_sum<NW + 2>(acc);
-  vec_sum<NW + 2>(acc);
-#pragma unroll
-  for (int w = 0; w < NW - 1; ++w) out[w] = acc[w];
-  const float last = fadd(acc[NW - 1], acc[NW]);
-  out[NW - 1] = fadd(last, acc[NW + 1]);
-}
-
-// ---------------------------------------------------------------------------
-// fused limb GEMM + diagonal cascade
-// ---------------------------------------------------------------------------
-
-constexpr int TM = 16, TN = 16, TK = 32;
-
-template <int NW>
-__global__ void __launch_bounds__(TM * TN)
-    limb_gemm_fused(const int8_t* __restrict__ A3, const int8_t* __restrict__ B3,
-                    const int* __restrict__ EAB, float* __restrict__ Out, int m, int k,
-                    int n) {
-  constexpr int L = limb_count(NW);
-  constexpr int ND = ndiag_count(NW);
-  constexpr int KQ = TK / 4;
-  __shared__ int As[L * TM * KQ];  // [L][TM][TK] int8, packed 4 per int
-  __shared__ int Bs[L * TN * KQ];  // [L][TN][TK] int8 (B transposed)
-  int8_t* As8 = reinterpret_cast<int8_t*>(As);
-  int8_t* Bs8 = reinterpret_cast<int8_t*>(Bs);
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TN + tx;
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * TM, j0 = blockIdx.x * TN;
-  const int8_t* Ab = A3 + static_cast<size_t>(b) * L * m * k;
-  const int8_t* Bb = B3 + static_cast<size_t>(b) * L * k * n;
-
-  int D[ND];
-#pragma unroll
-  for (int d = 0; d < ND; ++d) D[d] = 0;
-
-  for (int k0 = 0; k0 < k; k0 += TK) {
-    for (int idx = tid; idx < L * TM * TK; idx += TM * TN) {
-      const int kk = idx % TK;
-      const int r = (idx / TK) % TM;
-      const int l = idx / (TK * TM);
-      const int gi = i0 + r, gk = k0 + kk;
-      As8[idx] = (gi < m && gk < k) ? Ab[(static_cast<size_t>(l) * m + gi) * k + gk] : 0;
+    const int j = c0 + cq;
+    if (j < d1) {
+      unsigned m = 0u;
+#pragma unroll 4
+      for (int i = rr; i < d0; i += RT) m = max_u(m, abs_bits(at(0, i, j)));
+      atomicMax(&mx[cq], m);
     }
-    for (int idx = tid; idx < L * TK * TN; idx += TM * TN) {
-      const int c = idx % TN;
-      const int kk = (idx / TN) % TK;
-      const int l = idx / (TN * TK);
-      const int gj = j0 + c, gk = k0 + kk;
-      Bs8[(l * TN + c) * TK + kk] =
-          (gj < n && gk < k) ? Bb[(static_cast<size_t>(l) * k + gk) * n + gj] : 0;
-    }
-    __syncthreads();
+  }
+  __syncthreads();
+  if (side_a ? blockIdx.x == 0 : blockIdx.y == 0) {  // one tile writes each exponent
+    const int g0 = side_a ? r0 : c0, groups = side_a ? d0 : d1;
+    for (int q = tid; q < ngroups && g0 + q < groups; q += EX_THREADS)
+      E[static_cast<size_t>(b) * groups + g0 + q] = exp_of_maxbits(mx[q]);
+  }
+
+  const size_t rs = b_gemm ? static_cast<size_t>(L) * d1 : d1;  // limbs' row stride
+  const size_t ls = b_gemm ? d1 : plane;                         // limbs' limb stride
+  int8_t* Lb = limbs + static_cast<size_t>(b) * L * plane;
 #pragma unroll 1
-    for (int q = 0; q < KQ; ++q) {
-      int a[L], bv[L];
+  for (int a = 0; a < rpt; ++a) {
+#pragma unroll 1
+    for (int c = 0; c < cpt; ++c) {
+      const int tr = rr + RT * a, tc = cq + CQ * c;
+      const int i = r0 + tr, j = c0 + tc;
+      if (i >= d0 || j >= d1) continue;
+      if (a | c) load_words(i, j);
+      const int e = exp_of_maxbits(mx[side_a ? tr : tc]);
+      float ws[NW];
 #pragma unroll
+      for (int w = 0; w < NW; ++w) ws[w] = mul_pow2_word<4>(raw[w], -e);
+      int8_t* out = Lb + static_cast<size_t>(i) * rs + j;
+#pragma unroll 1
       for (int l = 0; l < L; ++l) {
-        a[l] = As[(l * TM + ty) * KQ + q];
-        bv[l] = Bs[(l * TN + tx) * KQ + q];
-      }
 #pragma unroll
-      for (int ta = 0; ta < L; ++ta) {
-#pragma unroll
-        for (int tb = 0; tb < L; ++tb) {
-          if (ta + tb < ND) D[ta + tb] = __dp4a(a[ta], bv[tb], D[ta + tb]);
-        }
+        for (int w = 0; w < NW; ++w) ws[w] = fmul(ws[w], 128.0f);
+        vec_sum<NW>(ws);
+        const float d = rintf(ws[0]);  // round half to even
+        ws[0] = fsub(ws[0], d);
+        out[static_cast<size_t>(l) * ls] = static_cast<int8_t>(static_cast<int>(d));
       }
     }
-    __syncthreads();
   }
-
-  const int i = i0 + ty, j = j0 + tx;
-  if (i >= m || j >= n) return;
-  const size_t off = (static_cast<size_t>(b) * m + i) * n + j;
-  float res[NW];
-  cascade_fold<NW>([&](int d) { return D[d]; }, EAB[off], res);
-  const size_t plane = static_cast<size_t>(m) * n;
-  float* ob = Out + static_cast<size_t>(b) * NW * plane + static_cast<size_t>(i) * n + j;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) ob[w * plane] = res[w];
 }
 
 // ---------------------------------------------------------------------------
@@ -270,33 +215,31 @@ __global__ void __launch_bounds__(CX * CY)
   const size_t plane = static_cast<size_t>(m) * n;
   const size_t ij = static_cast<size_t>(i) * n + j;
   const int eab = EAB[static_cast<size_t>(b) * plane + ij];
-  float res[NW];
+  float res[1][NW];
   if constexpr (FROM_C) {
     const size_t ldc = static_cast<size_t>(L) * n;
     const int* Cb = src + static_cast<size_t>(b) * L * m * ldc + static_cast<size_t>(i) * ldc + j;
-    cascade_fold<NW>(
-        [&](int d) {
+    cascade_fold<NW, 1>(
+        [&](int d, int) {
           int t = 0;
 #pragma unroll
           for (int ta = (d > L - 1 ? d - (L - 1) : 0); ta <= (d < L - 1 ? d : L - 1); ++ta)
             t += Cb[static_cast<size_t>(ta) * m * ldc + static_cast<size_t>(d - ta) * n];
           return t;
         },
-        eab, res);
+        &eab, res);
   } else {
     const int* Db = src + static_cast<size_t>(b) * ND * plane + ij;
-    cascade_fold<NW>([&](int d) { return Db[d * plane]; }, eab, res);
+    cascade_fold<NW, 1>([&](int d, int) { return Db[d * plane]; }, &eab, res);
   }
   float* ob = Out + static_cast<size_t>(b) * NW * plane + ij;
 #pragma unroll
-  for (int w = 0; w < NW; ++w) ob[w * plane] = res[w];
+  for (int w = 0; w < NW; ++w) ob[w * plane] = res[0][w];
 }
 
 // ---------------------------------------------------------------------------
 // the three pl_map chains of the IPM step
 // ---------------------------------------------------------------------------
-
-constexpr int MAX_NW = 8;
 
 // One operand of a chain: a word pointer per word, each with its own element
 // strides over the broadcast [L, D1, D2] shape (0 on a broadcast axis), so a
@@ -403,10 +346,6 @@ constexpr int TRI_MAX_TC = 4;  // columns of X per block at most
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Start of column i in the column-packed lower triangle: L[r, i] for
@@ -623,12 +562,38 @@ __global__ void __launch_bounds__(TRI_THREADS)
 
 constexpr int THREADS = 256;
 
+// The extraction's tile: CQ columns across (at least 8, a sector of a word
+// row, where the rows are that long; no more than the row has; on side a
+// wider until at most EX_MAX_SPLIT tiles share a row), RT = EX_THREADS /
+// CQ rows; then repeats along the reduction axis, so that at most
+// EX_MAX_SPLIT tiles read one row (side a) or column (side b).
+inline int pow2_at_least(long v, int cap) {
+  int p = 1;
+  while (p < v && p < cap) p *= 2;
+  return p;
+}
+
 template <int NW>
-int launch_extract(const float* w, int8_t* limbs, const int* exps, int B, int d0, int d1,
+int launch_extract(const WordPtrs& w, int8_t* limbs, int* exps, int B, int d0, int d1,
                    int side_a, int b_gemm, cudaStream_t s) {
-  const long total = static_cast<long>(B) * d0 * d1;
-  limb_extract_limbs<NW><<<ceil_div(total, THREADS), THREADS, 0, s>>>(w, exps, limbs, B, d0,
-                                                                      d1, side_a, b_gemm);
+  const int cq_max = pow2_at_least(d1, EX_THREADS);
+  const int cq_min = EX_THREADS / pow2_at_least(d0, EX_THREADS);
+  const int cq_lo = cq_min > 8 ? cq_min : 8;
+  int cq = cq_min > cq_max ? cq_max : (cq_lo < cq_max ? cq_lo : cq_max);
+  while (side_a && cq < cq_max && ceil_div(d1, cq) > EX_MAX_SPLIT) cq *= 2;
+  long rtiles = ceil_div(d0, EX_THREADS / cq), ctiles = ceil_div(d1, cq);
+  int rpt = 1, cpt = 1;
+  if (side_a) {
+    cpt = static_cast<int>(ceil_div(ctiles, EX_MAX_SPLIT));
+    ctiles = ceil_div(ctiles, cpt);
+  } else {
+    rpt = static_cast<int>(ceil_div(rtiles, EX_MAX_SPLIT));
+    rtiles = ceil_div(rtiles, rpt);
+  }
+  if (rtiles > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(ctiles), static_cast<unsigned>(rtiles), B);
+  limb_extract<NW><<<grid, EX_THREADS, 0, s>>>(w, limbs, exps, d0, d1, side_a, b_gemm, cq, rpt,
+                                                cpt);
   return 0;
 }
 
@@ -668,15 +633,6 @@ int launch_plmap(int fn, const Words* ops, float* out, int L, int D1, int D2, cu
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
-}
-
-template <int NW>
-int launch_gemm(const int8_t* a3, const int8_t* b3, const int* eab, float* out, int B, int m,
-                int k, int n, cudaStream_t s) {
-  dim3 grid(ceil_div(n, TN), ceil_div(m, TM), B);
-  dim3 block(TN, TM);
-  limb_gemm_fused<NW><<<grid, block, 0, s>>>(a3, b3, eab, out, m, k, n);
   return 0;
 }
 
@@ -726,14 +682,23 @@ const char* clrs_error_string(int rc) {
   return cudaGetErrorString(static_cast<cudaError_t>(rc));
 }
 
-int clrs_limb_extract(const float* w, int8_t* limbs, int* exps, int B, int nw, int d0, int d1,
-                      int side_a, int b_gemm, void* stream) {
+// words: nw pointers to the word tensors [B, d0, d1] and strides: their
+// [nw][3] element strides (host arrays).
+int clrs_limb_extract(const void* const* words, const long long* strides, int8_t* limbs,
+                      int* exps, int B, int nw, int d0, int d1, int side_a, int b_gemm,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || d0 <= 0 || d1 <= 0 || (b_gemm && side_a))
+  if (B <= 0 || d0 <= 0 || d1 <= 0 || nw > MAX_NW || (b_gemm && side_a))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long rows = static_cast<long>(B) * (side_a ? d0 : d1);
-  limb_extract_exp<<<ceil_div(rows, THREADS), THREADS, 0, s>>>(w, exps, B, nw, d0, d1, side_a);
-  CLRS_DISPATCH_NW(nw, launch_extract<NWc>(w, limbs, exps, B, d0, d1, side_a, b_gemm, s));
+  WordPtrs w{};
+  for (int k = 0; k < nw; ++k) {
+    w.w[k] = static_cast<const float*>(words[k]);
+    for (int a = 0; a < 3; ++a) w.s[k][a] = strides[3 * k + a];
+  }
+  CLRS_DISPATCH_NW(nw, {
+    const int rc = launch_extract<NWc>(w, limbs, exps, B, d0, d1, side_a, b_gemm, s);
+    if (rc != 0) return rc;
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -760,15 +725,6 @@ int clrs_plmap(int fn, const void* const* ptrs, const long long* strides, float*
       for (int a = 0; a < 3; ++a) ops[k].s[w][a] = strides[(k * MAX_NW + w) * 3 + a];
     }
   CLRS_DISPATCH_NW(nw, launch_plmap<NWc>(fn, ops, out, L, D1, D2, s));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int clrs_limb_gemm(const int8_t* a3, const int8_t* b3, const int* eab, float* out, int B, int m,
-                   int k, int n, int nw, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || m <= 0 || k <= 0 || n <= 0 || B > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CLRS_DISPATCH_NW(nw, launch_gemm<NWc>(a3, b3, eab, out, B, m, k, n, s));
   return static_cast<int>(cudaGetLastError());
 }
 

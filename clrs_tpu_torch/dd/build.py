@@ -25,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("kernels.cu", "int8_gemm.cu", "chol.cu")
-HEADERS = ("expansion.cuh", "common.cuh")
+SOURCES = ("kernels.cu", "limb_gemm.cu", "int8_gemm.cu", "chol.cu")
+HEADERS = ("expansion.cuh", "common.cuh", "limbs.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false"]
@@ -57,7 +57,9 @@ def _declare(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.clrs_error_string.argtypes = [i]
     lib.clrs_error_string.restype = ctypes.c_char_p
-    lib.clrs_limb_extract.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
+    lib.clrs_limb_extract.argtypes = [ctypes.POINTER(vp),
+                                      ctypes.POINTER(ctypes.c_longlong), vp,
+                                      vp, i, i, i, i, i, i, vp]
     lib.clrs_limb_gemm.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.clrs_chol.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.clrs_tri_solve.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]

@@ -10,8 +10,8 @@ so a run can show which route it took (:func:`reset_counts`,
 
 | wrapper            | kernel (csrc/kernels.cu unless named) | replaces (clrs_tpu/dd/pallas_linalg.py) |
 |--------------------|----------------------------|------------------------------------------------|
-| limb_extract       | limb_extract_{exp,limbs}   | _extract_call / pl_extract (all four layouts)  |
-| limb_gemm          | limb_gemm_fused            | _limb_gemm_fused_call / pl_limb_gemm_fused     |
+| limb_extract       | limb_extract<NW>           | _extract_call / pl_extract (all four layouts)  |
+| limb_gemm          | limb_gemm_fused (limb_gemm.cu) | _limb_gemm_fused_call / pl_limb_gemm_fused |
 | int8_gemm          | int8_gemm (int8_gemm.cu)   | the XLA int8 dot_general (limb_gemm.py:307)    |
 | cascade_from_c     | cascade<FROM_C>            | _cascade_tiles(_grid)_call / pl_cascade_tiles(_grid) |
 | cascade_from_diags | cascade<FROM_DIAGS>        | _cascade_call / pl_cascade                     |
@@ -41,7 +41,7 @@ from . import ops as O
 
 LIMB_BITS = 7
 KERNEL_NW = (5, 6, 7, 8)   # word counts the CUDA kernels are built for
-INT8_GEMM_MAX_K = 1 << 13  # csrc/int8_gemm.cu MAX_K: |C| < 2^31 for limbs <= 65
+INT8_GEMM_MAX_K = 1 << 13  # csrc/common.cuh MAX_K_EXACT: |C| < 2^31 for limbs <= 65
 _MAX_NW = 8                # csrc/kernels.cu MAX_NW
 
 
@@ -534,18 +534,23 @@ def limb_extract(words, L, side, layout="limb"):
     from .build import library
 
     _check_words(words, "limb_extract")
-    W = _stack(words)
-    Bt, nw, d0, d1 = W.shape
+    nw = len(words)
+    Bt, d0, d1 = words[0].shape
     if L != limb_params(nw)[0]:
         raise ValueError(f"limb_extract: L={L} does not match nw={nw}")
     b_gemm = side == "b" and layout == "gemm"
+    dev = words[0].device
     lshape = (Bt, d0, L * d1) if b_gemm else (Bt, L, d0, d1)
-    limbs = torch.empty(lshape, dtype=torch.int8, device=W.device)
+    limbs = torch.empty(lshape, dtype=torch.int8, device=dev)
     eshape = (Bt, d0, 1) if side == "a" else (Bt, 1, d1)
-    e = torch.empty(eshape, dtype=torch.int32, device=W.device)
-    rc = library().clrs_limb_extract(_ptr(W), _ptr(limbs), _ptr(e), Bt, nw,
-                                     d0, d1, int(side == "a"), int(b_gemm),
-                                     _stream())
+    e = torch.empty(eshape, dtype=torch.int32, device=dev)
+    # each word read where it lies, through its strides: no stacked copy
+    ptrs = (ctypes.c_void_p * nw)(*(c.data_ptr() for c in words))
+    strides = (ctypes.c_longlong * (3 * nw))(*(s for c in words
+                                               for s in c.stride()))
+    rc = library().clrs_limb_extract(ptrs, strides, _ptr(limbs), _ptr(e), Bt,
+                                     nw, d0, d1, int(side == "a"),
+                                     int(b_gemm), _stream())
     _launched(rc, "limb_extract")
     limb_extract.launches += 1
     if side == "a" and layout == "gemm":
@@ -553,16 +558,24 @@ def limb_extract(words, L, side, layout="limb"):
     return limbs, e
 
 
+def _check_depth(k, name):
+    if not 0 < k <= INT8_GEMM_MAX_K:
+        raise ValueError(f"{name}: depth k={k} outside 1..{INT8_GEMM_MAX_K},"
+                         " where the int32 sums of limb products stay exact")
+
+
 def limb_gemm(a3, b3, eab, nw):
     """nw f32 words [B, m, n] of the limb product; see
-    :func:`limb_gemm_plain` for the contract."""
+    :func:`limb_gemm_plain` for the contract. Raises for a depth k beyond
+    :data:`INT8_GEMM_MAX_K` on either device."""
+    Bt, La, m, k = a3.shape
+    _check_depth(k, "limb_gemm")
     if not _route(a3):
         return limb_gemm_plain(a3, b3, eab, nw)
     from .build import library
 
     _check_nw(nw, "limb_gemm")
     L, _ = limb_params(nw)
-    Bt, La, m, k = a3.shape
     n = b3.shape[3]
     if (a3.dtype != torch.int8 or b3.dtype != torch.int8
             or eab.dtype != torch.int32 or La != L
@@ -590,9 +603,7 @@ def int8_gemm(a, b):
     N = b.shape[2]
     _check_int("int8_gemm", (a, torch.int8, (Bt, M, K)),
                (b, torch.int8, (Bt, K, N)))
-    if not 0 < K <= INT8_GEMM_MAX_K:
-        raise ValueError(f"int8_gemm: depth K={K} outside 1..{INT8_GEMM_MAX_K},"
-                         " where the int32 product of limbs stays exact")
+    _check_depth(K, "int8_gemm")
     a, b = a.contiguous(), b.contiguous()
     c = torch.empty((Bt, M, N), dtype=torch.int32, device=a.device)
     rc = library().clrs_int8_gemm(_ptr(a), _ptr(b), _ptr(c), Bt, M, K, N,

@@ -178,6 +178,99 @@ def test_int8_gemm_shapes_match_plain_on_card(B, M, k, N, extreme, offset,
     assert K.counts()["int8_gemm"] == 1
 
 
+def _edge_words(nw, B, d0, d1, kind, seed):
+    """nw f32 words [B, d0, d1] for the extraction's edge cases: a NaN in
+    word 0 of row 1 and of column 2 ("nan"), zero rows and columns
+    ("zero"), a row and a column above 2^126 ("huge"), or plain values
+    (any other kind)."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((B, d0, d1)) * 10.0 ** rng.integers(-4, 4,
+                                                                (B, d0, d1))
+    if kind == "zero":
+        v[:, 0] = 0.0
+        v[:, :, -1] = 0.0
+    elif kind == "huge":
+        v[:, -1] *= 3e38 / np.abs(v[:, -1]).max()
+        v[:, :, 0] *= 1e38 / np.abs(v[:, :, 0]).max()
+    ws = split_words(v, nw)
+    if kind == "nan":
+        ws[0] = ws[0].copy()
+        ws[0][:, 1 % d0, 0] = np.nan
+        ws[0][:, -1, 2 % d1] = np.nan
+    return ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw, B, d0, d1, kind", [
+    (5, 2, 6, 9, "nan"),        # NaN in a row (side a) and a column (side b)
+    (8, 3, 5, 12, "nan"),
+    (5, 3, 7, 5, "zero"),       # zero rows and columns: exponent of 1
+    (6, 2, 5, 12, "huge"),      # above 2^126: two power-of-two steps
+    (5, 3, 4, 1, "plain"),      # k = 1
+    (7, 1, 3, 8192, "plain"),   # k = 2^13 along a row: tiles share rows
+    (6, 1, 8192, 5, "plain"),   # and down a column
+    (5, 4, 192, 64, "plain"),   # the Schur panel of delsarte(3,95)
+    (6, 2, 40, 24, "transposed"),  # strided views, read where they lie
+])
+def test_limb_extract_edges_match_plain_on_card(nw, B, d0, d1, kind, cuda):
+    """The one-launch extraction equals its plain version bit for bit,
+    limbs and exponents, on both sides and in both layouts, at the edges
+    its exponent reduction and its tiles treat apart, and on transposed
+    views (each word read through its strides). A NaN in word 0 gives
+    its row (side a) or column (side b) e = 130 as amax does; a maximum
+    that drops NaNs would scale the rest of that row by another power of
+    two."""
+    L, _ = K.limb_params(nw)
+    if kind == "transposed":
+        w = tuple(c.transpose(1, 2) for c in
+                  _t(_edge_words(nw, B, d1, d0, kind, 70 + nw + d0), cuda))
+    else:
+        w = _t(_edge_words(nw, B, d0, d1, kind, 70 + nw + d0), cuda)
+    for side in ("a", "b"):
+        for layout in ("limb", "gemm"):
+            K.reset_counts()
+            lk, ek = K.limb_extract(w, L, side, layout)
+            assert K.counts()["limb_extract"] == 1
+            lp, ep = K.limb_extract_plain(w, L, side, layout)
+            assert torch.equal(ek, ep) and torch.equal(lk, lp)
+            if kind == "nan":
+                nan_group = 1 % d0 if side == "a" else 2 % d1
+                assert (ek.flatten(1)[:, nan_group] == 130).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw, B, m, k, n, extreme", [
+    (5, 1, 2, 1, 3, True),          # k = 1: a chunk of 31 zeros
+    (5, 1, 17, 31, 9, True),        # ragged m, n and A rows (granules)
+    (6, 2, 33, 32, 17, True),       # one whole chunk, 16-byte A rows
+    (7, 1, 9, 33, 1, True),         # a second chunk of one k; n = 1
+    (8, 1, 5, 8192, 3, True),       # the deepest exact k: 256 chunks
+    (5, 4, 40, 20, 24, False),      # B 4, 4-byte A and B units
+    (8, 2, 40, 64, 48, False),      # nw 8, 16-byte units
+    (5, 2, 192, 64, 192, False),    # 16x16 tiles: two warps a 16x8 tile
+    (6, 4, 160, 64, 160, False),    # 16x16 tiles at nw 6
+    (8, 4, 192, 37, 192, False),    # 16x16 tiles, ragged A rows, nw 8
+])
+def test_limb_gemm_edges_match_plain_on_card(nw, B, m, k, n, extreme, cuda):
+    """The tensor-core limb GEMM equals its plain version bit for bit at the
+    depths, ragged edges, batch sizes and word counts (each its own number
+    of diagonal fragments) its staging and tiles treat apart; with
+    ``extreme`` every limb is +-65, the largest diagonal sums. One call is
+    one launch."""
+    rng = np.random.default_rng(m + k + n + nw)
+    L, _ = K.limb_params(nw)
+    a3 = _limbs(rng, (B, L, m, k), extreme).to(cuda)
+    b3 = _limbs(rng, (B, L, k, n), extreme).to(cuda)
+    eab = torch.from_numpy(rng.integers(-8, 9, (B, m, n)).astype(np.int32)
+                           ).to(cuda)
+    K.reset_counts()
+    gk = K.limb_gemm(a3, b3, eab, nw)
+    assert K.counts()["limb_gemm"] == 1
+    gp = K.limb_gemm_plain(a3, b3, eab, nw)
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(gk, gp))
+
+
 def _indefinite_at(B, n, nw, j, seed):
     """B SPD members, the last replaced by L D L^T whose pivot j is -1 (its
     diagonal entry there starts positive): its ok flag must clear at j."""
@@ -225,7 +318,8 @@ def test_chol_shapes_match_plain_on_card(nw, B, n, bad, cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["int8_deep_k", "int8_grid_rows",
-                                  "chol_no_room"])
+                                  "chol_no_room", "limb_gemm_deep_k",
+                                  "extract_batch"])
 def test_refused_launch_raises_on_card(case, cuda):
     """A shape a kernel refuses raises in its wrapper; nothing is launched
     and no plain version runs in its place."""
@@ -240,9 +334,20 @@ def test_refused_launch_raises_on_card(case, cuda):
             K.int8_gemm(torch.zeros((1, 64 * 65535 + 1, 1), dtype=torch.int8,
                                     device=cuda),
                         torch.zeros((1, 1, 1), dtype=torch.int8, device=cuda))
-        else:                              # coll and rowl exceed 227 KB
+        elif case == "chol_no_room":       # coll and rowl exceed 227 KB
             z = torch.zeros((1, 2000, 2000), device=cuda)
             K.chol_batched((z,) * 8)
+        elif case == "limb_gemm_deep_k":   # beyond the exact depth 2^13
+            L, _ = K.limb_params(5)
+            K.limb_gemm(torch.zeros((1, L, 2, 8193), dtype=torch.int8,
+                                    device=cuda),
+                        torch.zeros((1, L, 8193, 2), dtype=torch.int8,
+                                    device=cuda),
+                        torch.zeros((1, 2, 2), dtype=torch.int32,
+                                    device=cuda), 5)
+        else:                              # 65,536 batch members: grid z
+            z = torch.zeros((65536, 1, 1), device=cuda)
+            K.limb_extract((z,) * 5, K.limb_params(5)[0], "a")
     torch.cuda.synchronize()
     assert all(v == 0 for v in K.counts().values())
 

@@ -150,3 +150,80 @@ def test_fx_matmul_rejects_inexact_depth():
     b = tuple(torch.zeros((1, tg.MAX_K_EXACT + 1, 2)) for _ in range(5))
     with pytest.raises(ValueError):
         tg.fx_matmul(a, b)
+
+
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_extract_keeps_nan_as_jax_xla_route(side, xla_subnormals):
+    """A NaN in word 0 of one row (side a) or column (side b): the plain
+    extraction, which the CUDA kernel must match bit for bit, gives the
+    exponents of the JAX XLA route (_row_exp_f32 + mul_pow2_f32 +
+    _extract_limbs, Pallas off) and its limbs on the rows (columns) without
+    a NaN. jnp.max and amax propagate the NaN, so its row (column) gets
+    e = 130, not the exponent of the largest number beside it."""
+    nw = 5
+    L, _ = K.limb_params(nw)
+    rng = np.random.default_rng(17)
+    v = rng.standard_normal((4, 6)) * 10.0 ** rng.integers(-3, 3, (4, 6))
+    ws = split_words(v, nw)
+    ws[0] = ws[0].copy()
+    ws[0][1, 2] = np.nan
+    axis = 1 if side == "a" else 0
+    ej = lg._row_exp_f32(jnp.asarray(ws[0]), axis=axis)
+    scaled = tuple(lg.mul_pow2_f32(jnp.asarray(c), -ej) for c in ws)
+    lj = np.asarray(lg._extract_limbs(scaled, L))
+    ej = np.asarray(ej)
+    lt, et = K.limb_extract_plain(_t(ws), L, side)
+    lt, et = lt[0].numpy(), et[0].numpy()
+    assert np.array_equal(ej, et)
+    nan_group = 1 if side == "a" else 2
+    assert et.ravel()[nan_group] == 130
+    finite = np.abs(v).max(axis=axis)[nan_group]
+    assert et.ravel()[nan_group] != int(np.frexp(np.float32(finite))[1]) + 1
+    keep = np.arange(v.shape[1 - axis]) != nan_group
+    if side == "a":
+        assert np.array_equal(lj[:, keep], lt[:, keep].astype(lj.dtype))
+    else:
+        assert np.array_equal(lj[:, :, keep], lt[:, :, keep].astype(lj.dtype))
+
+
+def test_limb_gemm_plain_exact_at_deepest_k(xla_subnormals, jax_xla_route):
+    """limb_gemm_plain at k = 2^13 with every limb at +-65 (the largest
+    diagonal sums the int32 accumulators must hold): its diagonal sums equal
+    numpy's int64 ones, and its words equal the JAX XLA route's cascade of
+    the same limbs (fx_matmul with pre_a and pre_b)."""
+    nw, m, n, k = 5, 2, 2, tg.MAX_K_EXACT
+    L, ndiag = K.limb_params(nw)
+    rng = np.random.default_rng(5)
+    la = (rng.integers(0, 2, (L, m, k)) * 130 - 65).astype(np.int8)
+    lb = (rng.integers(0, 2, (L, k, n)) * 130 - 65).astype(np.int8)
+    ea = np.array([[3], [-2]], np.int32)
+    eb = np.array([[1, 4]], np.int32)
+    prod = np.einsum("amk,bkn->abmn", la.astype(np.int64), lb.astype(np.int64))
+    d64 = [sum(prod[ta, d - ta] for ta in range(max(0, d - L + 1),
+                                                min(d, L - 1) + 1))
+           for d in range(ndiag)]
+    assert max(np.abs(d).max() for d in d64) < 2 ** 31
+    a3, b3 = torch.from_numpy(la)[None], torch.from_numpy(lb)[None]
+    C = K._int8_product(a3.reshape(1, L * m, k),
+                        b3.permute(0, 2, 1, 3).reshape(1, k, L * n))
+    for dt, dn in zip(K._diags_from_c(C, L, m, n, ndiag), d64):
+        assert np.array_equal(dt[0].numpy(), dn)
+    rj = jax.jit(lambda pa, pb: lg.fx_matmul(None, None, nw=nw, pre_a=pa,
+                                             pre_b=pb))(
+        (jnp.asarray(la), jnp.asarray(ea)), (jnp.asarray(lb), jnp.asarray(eb)))
+    eab = torch.from_numpy(ea + eb)[None]
+    _same(rj, tuple(c[0] for c in K.limb_gemm_plain(a3, b3, eab, nw)))
+
+
+def test_limb_gemm_wrapper_rejects_inexact_depth():
+    """The limb_gemm wrapper raises for k = 2^13 + 1 on a CPU tensor too,
+    as int8_gemm does on the card, rather than sum inexactly; no plain
+    version runs."""
+    L, _ = K.limb_params(5)
+    k = K.INT8_GEMM_MAX_K + 1
+    K.reset_counts()
+    with pytest.raises(ValueError):
+        K.limb_gemm(torch.zeros((1, L, 2, k), dtype=torch.int8),
+                    torch.zeros((1, L, k, 2), dtype=torch.int8),
+                    torch.zeros((1, 2, 2), dtype=torch.int32), 5)
+    assert K.counts()["limb_gemm_plain"] == 0

@@ -4,23 +4,30 @@ Runs ``--iters`` iterations of delsarte(3, d) on the card with the calls of
 the kernel recorded on their way to its wrapper: the triangular solve and
 the Cholesky through ``clrs_tpu_torch.dd.linalg`` (every caller of both;
 ``--kernel tri`` records (nw, B, n, m, trans), ``--kernel chol`` (nw, B,
-n)), the split route's int8 product through ``clrs_tpu_torch.dd.limb_gemm``
-(its only caller; ``--kernel int8_gemm`` records (B, M, K, N)). Then it
+n)); the split route's int8 product, the fused limb GEMM and the limb
+extraction through ``clrs_tpu_torch.dd.limb_gemm`` (their only caller;
+``--kernel int8_gemm`` records (B, M, K, N), ``--kernel limb_gemm`` (nw, B,
+m, k, n), ``--kernel limb_extract`` (nw, B, d0, d1, side, layout)). Then it
 times the kernel at every recorded shape on random inputs of that shape
 with chip_smoke.py's ``time_ms`` (CUDA events around calls queued behind a
 spin kernel): a solve on an SPD matrix's factor from the plain Cholesky and
 standard normal right-hand sides, the Cholesky on SPD matrices, the int8
-product on limbs drawn from [-65, 65]. ``--kernel`` takes a comma list
-(one solve records them all); ``--shape kernel:a,b,...`` times a shape
-of that kernel besides (``--d 0``: no solve, only those). Prints one
-JSON line per kernel: per shape the calls per iteration, ms per call and
-ms per iteration, and their sum (per form for the solve). The package and
+product on limbs drawn from [-65, 65], the extraction on standard normal
+words with rows scaled by powers of ten, the limb GEMM on such words'
+limbs (from the plain extraction). ``--kernel`` takes a comma list (one
+solve records them all); ``--shape kernel:a,b,...`` times a shape of that
+kernel besides (``--d 0``: no solve, only those). Prints one JSON line per
+kernel: per shape the calls per iteration, ms per call, ms per iteration
+and the bound of chip_smoke.py's ``cost_*`` (the least time the card could
+take), and the sums (per form for the solve). The package and
 chip_smoke.py are imported from beside the script, so a copy of it in
 another checkout times that checkout's kernels. On a machine with a card:
 
     python3 torch_kernel_timing.py --kernel tri --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel chol,int8_gemm --d 95 --iters 1
+    python3 torch_kernel_timing.py --kernel limb_gemm,limb_extract --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel chol --d 0 --shape chol:5,2,64
+    python3 torch_kernel_timing.py --kernel limb_extract --d 0 --shape limb_extract:5,4,192,64,a,limb
 """
 
 from __future__ import annotations
@@ -37,7 +44,13 @@ from pathlib import Path
 # wrapper name)
 RECORDED = {"tri": ("linalg", "tri_solve_batched"),
             "chol": ("linalg", "chol_batched"),
-            "int8_gemm": ("limb_gemm", "int8_gemm")}
+            "int8_gemm": ("limb_gemm", "int8_gemm"),
+            "limb_gemm": ("limb_gemm", "limb_gemm"),
+            "limb_extract": ("limb_gemm", "limb_extract")}
+FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
+          "int8_gemm": ("B", "M", "K", "N"),
+          "limb_gemm": ("nw", "B", "m", "k", "n"),
+          "limb_extract": ("nw", "B", "d0", "d1", "side", "layout")}
 
 
 def _shape(kernel, args, kw):
@@ -50,6 +63,14 @@ def _shape(kernel, args, kw):
     if kernel == "chol":
         (a,) = args
         return (len(a),) + tuple(a[0].shape[:2])
+    if kernel == "limb_gemm":
+        a3, b3, _, nw = args
+        Bt, _, m, k = a3.shape
+        return (nw, Bt, m, k, b3.shape[3])
+    if kernel == "limb_extract":
+        words, _, side = args[:3]
+        layout = kw.get("layout", args[3] if len(args) > 3 else "limb")
+        return (len(words),) + tuple(words[0].shape) + (side, layout)
     a, b = args
     return tuple(a.shape) + (b.shape[2],)
 
@@ -69,16 +90,41 @@ def _call(kernel, key, rng, S, K):
         nw, B, n = key
         a = S._spd(rng, B, n, nw)
         return lambda: K.chol_batched(a)
+    if kernel == "limb_gemm":
+        nw, B, m, k, n = key
+        L, _ = K.limb_params(nw)
+        A3, ea = K.limb_extract_plain(S._words(rng, (B, m, k), nw, True), L,
+                                      "a")
+        B3, eb = K.limb_extract_plain(S._words(rng, (B, k, n), nw), L, "b")
+        eab = (ea + eb).expand(B, m, n).contiguous()
+        return lambda: K.limb_gemm(A3, B3, eab, nw)
+    if kernel == "limb_extract":
+        nw, B, d0, d1, side, layout = key
+        w = S._words(rng, (B, d0, d1), nw, True)
+        L, _ = K.limb_params(nw)
+        return lambda: K.limb_extract(w, L, side, layout)
     B, M, k, N = key
     a, b = (torch.from_numpy(rng.integers(-65, 66, s).astype(np.int8))
             .to("cuda") for s in ((B, M, k), (B, k, N)))
     return lambda: K.int8_gemm(a, b)
 
 
-def _fields(kernel, key):
-    names = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
-             "int8_gemm": ("B", "M", "K", "N")}[kernel]
-    return dict(zip(names, key))
+def _bound_ms(kernel, key, S, K):
+    """chip_smoke.py's bound of one call at shape ``key``."""
+    if kernel == "tri":
+        nw, B, n, m, trans = key
+        return S.bound(*S.cost_tri(nw, B, n, m, trans))[0]
+    if kernel == "chol":
+        return S.bound(*S.cost_chol(*key))[0]
+    if kernel == "int8_gemm":
+        return S.bound(*S.cost_int8_gemm(*key))[0]
+    if kernel == "limb_gemm":
+        nw, B, m, k, n = key
+        return S.bound(*S.cost_limb_gemm(nw, *K.limb_params(nw), B, m, k,
+                                         n))[0]
+    nw, B, d0, d1, side, _ = key
+    return S.bound(*S.cost_extract(nw, K.limb_params(nw)[0], B, d0, d1,
+                                   side))[0]
 
 
 def record(kernel, run):
@@ -123,7 +169,8 @@ def main():
                     help="kernel:a,b,... timed besides the recorded shapes")
     args = ap.parse_args()
     kernels = args.kernel.split(",")
-    extra = [(k, tuple(int(v) for v in dims.split(",")))
+    extra = [(k, tuple(int(v) if v.lstrip("-").isdigit() else v
+                       for v in dims.split(",")))
              for k, dims in (x.split(":") for x in args.shape)]
     for k in kernels + [k for k, _ in extra]:
         if k not in RECORDED:
@@ -165,8 +212,9 @@ def main():
         for key, calls in keys:
             ms = S.time_ms(_call(k, key, rng, S, K), args.reps)
             per_it = calls / args.iters
-            rows.append(dict(_fields(k, key), calls_per_iteration=per_it,
-                             ms=ms, ms_per_iteration=per_it * ms))
+            rows.append(dict(zip(FIELDS[k], key), calls_per_iteration=per_it,
+                             ms=ms, ms_per_iteration=per_it * ms,
+                             bound_ms=_bound_ms(k, key, S, K)))
             form = ("transposed" if key[-1] else "forward") \
                 if k == "tri" else "all"
             sums[form] += per_it * ms
