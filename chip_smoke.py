@@ -11,12 +11,14 @@ Phases (one line each; any failure exits non-zero):
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the main path, at nw = 5 and 8 and at the edge shapes each
      kernel treats apart (bit-identical is the tolerance, ok flags and the
-     extraction's NaN rows and columns included), the split GEMM route
-     against the fused one, and at its main-path shapes (at least one per
-     TPU kernel it replaces; every int8_gemm, limb_gemm and limb_extract
-     shape of a delsarte(3,95) iteration) its time, its plain version's
-     time (time_ms), its bound on this card (bound) and a library call's
-     time where one PyTorch call computes the same function;
+     extraction's NaN rows and columns included; the cascade's one-element,
+     m or n 1, ragged and B-300 tilings and its largest diagonal sums; the
+     chains' broadcast, stacked, transposed and sliced operands), the split
+     GEMM route against the fused one, and at its main-path shapes (at
+     least one per TPU kernel it replaces; every int8_gemm, limb_gemm and
+     limb_extract shape of a delsarte(3,95) iteration) its time, its plain
+     version's time (time_ms), its bound on this card (bound) and a library
+     call's time where one PyTorch call computes the same function;
   4. delsarte(3, 10) through clrs_tpu_torch.solvesdp (the card is its
      default device): error code 0, Optimal, objective within 1e-9 of
      13.15831434739031, every kernel of its path launched (counts set to 0
@@ -277,6 +279,31 @@ def _words(rng, shape, nw, scale_rows=False):
     return _split(v, nw)
 
 
+def _chain_words(rng, shape, nw, form, scale):
+    """nw words [L, n, n] on the card laid out as ``form`` says: separate
+    contiguous tensors, views of one word-major stack, transposed views,
+    views sliced out of larger planes (pointers off alignment), or one
+    matrix broadcast over L."""
+    import numpy as np
+    import torch
+
+    L, n, _ = shape
+    v = rng.standard_normal(shape) * scale
+    if form == "stack":
+        st = torch.stack(_split(v, nw), 1).contiguous()
+        return tuple(st[:, w] for w in range(nw))
+    if form == "transposed":
+        return tuple(c.transpose(1, 2) for c in
+                     _split(v.transpose(0, 2, 1).copy(), nw))
+    if form == "sliced":
+        big = np.zeros((L, n + 1, n + 1))
+        big[:, 1:, 1:] = v
+        return tuple(c[:, 1:, 1:] for c in _split(big, nw))
+    if form == "shared":
+        return tuple(c.expand(L, n, n) for c in _split(v[:1], nw))
+    return _split(v, nw)
+
+
 def _spd(rng, B, n, nw):
     import numpy as np
 
@@ -425,7 +452,8 @@ INT8_SHAPES_3_95 = ((1, 21, 191, 4032), (1, 21, 192, 21), (1, 1344, 64, 21),
                     (2, 672, 64, 2016), (4, 672, 64, 672), (4, 672, 64, 2016))
 
 
-LIMB_REPS = 20   # the extraction and the fused limb GEMM: microseconds a call
+LIMB_REPS = 20   # the extraction, the limb GEMM, the cascade and the chains:
+# microseconds a call
 # (nw, B, m, k, n) of every limb_gemm call and (nw, B, d0, d1, side, layout)
 # of every limb_extract call in the first iteration of delsarte(3,95)
 # (torch_kernel_timing.py --kernel limb_gemm,limb_extract --d 95 --iters 1)
@@ -636,12 +664,14 @@ def compare_kernels():
         ks.check("cascade_from_c", f"{PL}:420 (_cascade_tiles_call); "
                  f"{PL}:469 (_cascade_tiles_grid_call)", K.cascade_from_c,
                  K.cascade_from_c_plain, (C, eab, nw), shape,
-                 cost_cascade(nw, L, ndiag, B, m, n, True) if timed else None)
+                 cost_cascade(nw, L, ndiag, B, m, n, True) if timed else None,
+                 reps=LIMB_REPS)
         diags = torch.stack(K._diags_from_c(C, L, m, n, ndiag), 1).contiguous()
         ks.check("cascade_from_diags", f"{PL}:370 (_cascade_call)",
                  K.cascade_from_diags, K.cascade_from_diags_plain,
                  (diags, eab, nw), shape,
-                 cost_cascade(nw, L, ndiag, B, m, n, False) if timed else None)
+                 cost_cascade(nw, L, ndiag, B, m, n, False) if timed else None,
+                 reps=LIMB_REPS)
         # the split route against the fused route on the same operands
         same, err = _compare(tg.fx_matmul(a, b, route="split"),
                              tg.fx_matmul(a, b, route="fused"))
@@ -649,6 +679,27 @@ def compare_kernels():
               flush=True)
         if not same:
             fail(f"fx_matmul split and fused routes differ at {shape}")
+    # the cascade untimed at the tilings and sizes it treats apart (one
+    # element, m or n 1, B a few hundred, m and n multiples of no tile) and
+    # with every limb at +-65 at k = 2^13 (the largest diagonal sums), nw 5-8
+    for nw, (B, m, k, n), extreme in ((6, (1, 1, 3, 1), False),
+                                      (7, (3, 1, 5, 17), False),
+                                      (8, (2, 17, 4, 1), False),
+                                      (5, (300, 3, 2, 5), False),
+                                      (6, (2, 33, 9, 65), False),
+                                      (5, (1, 33, 8192, 65), True),
+                                      (8, (1, 27, 8192, 40), True)):
+        L, ndiag = K.limb_params(nw)
+        C = K.int8_gemm_plain(_limbs(rng, (B, L * m, k), extreme),
+                              _limbs(rng, (B, k, L * n), extreme))
+        eab = torch.from_numpy(rng.integers(-40, 41, (B, m, n))
+                               .astype(np.int32)).to("cuda")
+        shape = dict(nw=nw, B=B, m=m, k=k, n=n, extreme=extreme)
+        ks.check("cascade_from_c", "", K.cascade_from_c,
+                 K.cascade_from_c_plain, (C, eab, nw), shape)
+        diags = torch.stack(K._diags_from_c(C, L, m, n, ndiag), 1).contiguous()
+        ks.check("cascade_from_diags", "", K.cascade_from_diags,
+                 K.cascade_from_diags_plain, (diags, eab, nw), shape)
     # int8_gemm untimed at the depths, widths and alignments its staging and
     # tiles treat apart (K of one, of a chunk and around it, and the deepest
     # exact K with every limb at +-65: the largest |C|; N = L n at n 1, the
@@ -689,14 +740,15 @@ def compare_kernels():
         add, mul, el = exp_add_ops(nw), exp_mul_ops(nw), L * n * n
         ks.check("plmap_add", "clrs_tpu/solver/step.py:1561 (pl_map, "
                  f"{PL}:738)", K.plmap_add, K.plmap_add_plain, (x, d), shape,
-                 cost_plmap((x, d), nw, el, add) if timed else None)
+                 cost_plmap((x, d), nw, el, add) if timed else None,
+                 reps=LIMB_REPS)
         ks.check("plmap_add", "", K.plmap_add, K.plmap_add_plain, (mu, x),
                  dict(shape, scalar_first=True))
         ks.check("plmap_axpy", "clrs_tpu/solver/step.py:1255 (pl_map, "
                  f"{PL}:738)", K.plmap_axpy, K.plmap_axpy_plain,
                  (x, d, alpha), shape,
                  cost_plmap((x, d, alpha), nw, el, 1 + mul + add)
-                 if timed else None)
+                 if timed else None, reps=LIMB_REPS)
         ks.check("plmap_residual", "clrs_tpu/solver/step.py:1406 (pl_map, "
                  f"{PL}:738)", K.plmap_residual, K.plmap_residual_plain,
                  (mu, mask, x), dict(shape, corr=False))
@@ -704,7 +756,31 @@ def compare_kernels():
                  K.plmap_residual_plain, (mu, mask, x, d),
                  dict(shape, corr=True),
                  cost_plmap((mu, mask, x, d), nw, el, 2 * nw + 2 * add)
-                 if timed else None)
+                 if timed else None, reps=LIMB_REPS)
+    # untimed with the operand forms the kernels read apart (views of one
+    # word-major stack, as the step's words lie; transposed and sliced
+    # views; one matrix broadcast over L), L 1-4, n 1-96, nw 5-8
+    for nw, (L, n), form in ((5, (2, 96), "stack"), (6, (1, 96), "transposed"),
+                             (7, (4, 11), "sliced"), (8, (3, 96), "sliced"),
+                             (5, (4, 1), "contiguous"), (8, (2, 11), "shared"),
+                             (6, (3, 10), "stack"), (7, (1, 95), "transposed")):
+        x, d = (_chain_words(rng, (L, n, n), nw, form, s) for s in (10, 1e-3))
+        mu = tuple(c.expand(L, 1, 1) for c in
+                   _split(np.asarray([[[rng.random() * 1e3]]]), nw))
+        alpha = tuple(c.expand(L, 1, 1) for c in
+                      _split(np.asarray([[[rng.random()]]]), 3))
+        mask = torch.ones((L, n, n), device="cuda")
+        mask[-1, -1, :] = 0.0
+        if form == "transposed":
+            mask = mask.transpose(1, 2)
+        shape = dict(nw=nw, L=L, n=n, form=form)
+        ks.check("plmap_add", "", K.plmap_add, K.plmap_add_plain, (x, d), shape)
+        ks.check("plmap_axpy", "", K.plmap_axpy, K.plmap_axpy_plain,
+                 (x, d, alpha), shape)
+        for corr in ((), (d,)):
+            ks.check("plmap_residual", "", K.plmap_residual,
+                     K.plmap_residual_plain, (mu, mask, x) + corr,
+                     dict(shape, corr=bool(corr)))
     # Cholesky: X|Y blocks, Schur-sized and a blocked diagonal block of
     # chol(S) (B 1, n 64; two of them at B 2), timed; then untimed at the
     # sizes where its chain, its shared layout and its global-memory path

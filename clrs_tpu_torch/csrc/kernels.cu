@@ -26,15 +26,25 @@
 // int8_gemm                 the split route's int8 product: csrc/int8_gemm.cu.
 // cascade<FROM_C>           replaces _cascade_tiles_call / pl_cascade_tiles
 //   and _cascade_tiles_grid_call / pl_cascade_tiles_grid: the diagonal sums
-//   of C and the cascade. Bound by reading the kept limb-pair tiles of C.
-//   One thread per output element on a 2-D grid with bounds checks: any
-//   m, n, no padding, no VMEM staging to carry over.
+//   of C and the cascade. At the main path's sizes bound by latency: each
+//   element's ND diagonal sums need up to L loads each from different row
+//   blocks of C, then a fold of ND dependent rounds. A block owns a tile of
+//   output elements (sized so that the blocks cover the SMs); its threads
+//   issue all the tile's limb-pair loads at once and sum each diagonal in
+//   int32 into shared memory, then one thread an element folds them
+//   (csrc/limbs.cuh cascade_fold). Any m, n; no padding.
 // cascade<FROM_DIAGS>       replaces _cascade_call / pl_cascade (no caller in
-//   either package); same fold from precomputed diagonal sums.
-// plmap_{add,axpy,residual} replace pl_map at its three call sites in
-//   clrs_tpu/solver/step.py: one thread per element, all words in registers,
-//   broadcast operands read through per-word strides. Bound by the bytes of
-//   the words they read and write.
+//   either package): the same fold from precomputed diagonal sums, each
+//   thread's ND loads issued before it.
+// plmap<NW, FN>             replaces pl_map at its three call sites in
+//   clrs_tpu/solver/step.py (FN: the corrector sum, the state update, the
+//   residual with and without the corrector term). Bound by latency at
+//   these sizes: the launch, one load round trip and one element's chain.
+//   A (column tile, row tile, l) grid of 64-thread blocks, one element a
+//   thread, 32-bit offsets within a plane and no division; each operand is
+//   read as the wrapper classified it (a plane with unit column stride and
+//   one offset for all its words; an [L, 1, 1] scalar read at one address;
+//   or any strided view).
 // chol_batched              replaces _chol_call / pl_cholesky_b: csrc/chol.cu.
 // tri_solve_batched<TRANS>  replaces _tril_call (forward, L X = B) and
 //   _tril_t_call (transposed, L^T X = B) (pl_solve_tril_b /
@@ -195,44 +205,103 @@ __global__ void __launch_bounds__(EX_THREADS)
 // the cascade from a finished int8 product C, or from precomputed diagonals
 // ---------------------------------------------------------------------------
 
-constexpr int CX = 32, CY = 8;
+constexpr int CASCADE_TILE_MAX = 32;  // output elements a block
 
-// One thread per output element (i, j) of batch b, the NW + 2 carry words in
-// registers. FROM_C: C [B, L m, L n] int32 with limb-major row and column
-// blocks; diagonal d sums C[ta m + i, (d - ta) n + j] over the limb pairs of
-// d (pl_cascade_tiles and pl_cascade_tiles_grid, which differ only in how
-// the TPU stages C through VMEM). FROM_DIAGS: diags [B, ND, m, n]
-// (pl_cascade). eab [B, m, n]; out [B, NW, m, n].
+// Threads an element takes in a FROM_C block's phase 1: each sums diagonals
+// s and ND - 1 - s, whose limb pairs number at most ND + 1 together.
+__host__ __device__ constexpr int cascade_slices(int nw) { return (ndiag_count(nw) + 1) / 2; }
+
+// Dynamic shared memory of a FROM_C block, in ints: the diagonal sums
+// D[ND][tile] and the staged loads, stage[ND + 1][tile slices].
+__host__ __device__ constexpr int cascade_smem_ints(int nw, int tile) {
+  return ndiag_count(nw) * tile + (ndiag_count(nw) + 1) * tile * cascade_slices(nw);
+}
+
+// Block (x, b) owns the `tile` output elements x tile .. x tile + tile - 1 of
+// batch member b, flattened row-major over [m, n] (tile a power of two,
+// 8..CASCADE_TILE_MAX, chosen by dd/kernels.py cascade_tile so that the
+// blocks cover the SMs). eab [B, m, n]; out [B, NW, m, n].
+//
+// FROM_C (pl_cascade_tiles and pl_cascade_tiles_grid, which differ only in
+// how the TPU stages C through VMEM): C [B, L m, L n] int32 with limb-major
+// row and column blocks; diagonal d sums C[ta m + i, (d - ta) n + j] over
+// its limb pairs. Phase 1: thread (s, e), e fastest, so that a warp reads
+// consecutive elements of one limb-pair tile, copies the limb pairs of
+// diagonals s and ND - 1 - s of element e (at most ND + 1) into its own
+// slots of shared memory with cp.async, all in flight at once (one round
+// trip to memory; loads into registers were consumed, and waited on, one
+// by one as ptxas scheduled them), then sums each diagonal in int32 (exact
+// in any order) into D[d][e]. Phase 2: thread e folds element e from D
+// through cascade_fold (csrc/limbs.cuh, the fold limb_gemm_fused runs).
+// FROM_DIAGS (pl_cascade): diags [B, ND, m, n]; thread e issues its ND
+// coalesced loads, then folds them (through shared memory they took
+// longer).
+//
+// One element a thread in phase 2: at these sizes the fold is a latency
+// chain, and two chains interleaved in one thread take as long as one.
 template <int NW, bool FROM_C>
-__global__ void __launch_bounds__(CX * CY)
+__global__ void __launch_bounds__(CASCADE_TILE_MAX * cascade_slices(NW))
     cascade(const int* __restrict__ src, const int* __restrict__ EAB, float* __restrict__ Out,
-            int m, int n) {
+            int m, int n, int tile) {
   constexpr int L = limb_count(NW);
   constexpr int ND = ndiag_count(NW);
-  const int b = blockIdx.z;
-  const int i = blockIdx.y * CY + threadIdx.y, j = blockIdx.x * CX + threadIdx.x;
-  if (i >= m || j >= n) return;
-  const size_t plane = static_cast<size_t>(m) * n;
-  const size_t ij = static_cast<size_t>(i) * n + j;
-  const int eab = EAB[static_cast<size_t>(b) * plane + ij];
+  extern __shared__ int cascade_smem[];
+  int* D = cascade_smem;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int mn = m * n;  // < 2^31 (clrs_cascade checks)
+  const int e = tid & (tile - 1);
+  const int ij = blockIdx.x * tile + e;
+  const bool valid = ij < mn;
+  const size_t plane = static_cast<size_t>(mn);
+  int eab = 0;
+  if (tid < tile && valid) eab = __ldg(EAB + b * plane + ij);
   float res[1][NW];
   if constexpr (FROM_C) {
-    const size_t ldc = static_cast<size_t>(L) * n;
-    const int* Cb = src + static_cast<size_t>(b) * L * m * ldc + static_cast<size_t>(i) * ldc + j;
-    cascade_fold<NW, 1>(
-        [&](int d, int) {
-          int t = 0;
+    const int nt = tile * cascade_slices(NW);
+    int* stage = D + ND * tile;
+    const int d0 = tid / tile, d1 = ND - 1 - d0;
+    // diagonal d: pairs ta = lo .. lo + count - 1
+    auto lo = [](int d) { return d > L - 1 ? d - (L - 1) : 0; };
+    auto count = [&](int d) { return (d < L - 1 ? d : L - 1) - lo(d) + 1; };
+    const int c0 = count(d0), c1 = d1 > d0 ? count(d1) : 0;
+    if (valid) {
+      // 32-bit offsets within member b of C (clrs_cascade checks that they
+      // fit): limb pair (ta, tb) of element (i, j) at ta m ldc + tb n + i ldc + j
+      const int i = ij / n, j = ij - i * n;
+      const int ldc = L * n, step = m * ldc - n;  // (ta, tb) -> (ta + 1, tb - 1)
+      const int* Cb = src + b * (static_cast<size_t>(L) * m * ldc);
+      auto first = [&](int d) { return lo(d) * m * ldc + (d - lo(d)) * n + i * ldc + j; };
+      const int o0 = first(d0), jump = first(d1) - o0 - c0 * step;
 #pragma unroll
-          for (int ta = (d > L - 1 ? d - (L - 1) : 0); ta <= (d < L - 1 ? d : L - 1); ++ta)
-            t += Cb[static_cast<size_t>(ta) * m * ldc + static_cast<size_t>(d - ta) * n];
-          return t;
-        },
-        &eab, res);
+      for (int k = 0; k < ND + 1; ++k) {  // slots past the pairs are zero-filled
+        const bool pair = k < c0 + c1;
+        cp_async_zfill<4>(stage + k * nt + tid,
+                          Cb + (pair ? o0 + k * step + (k < c0 ? 0 : jump) : o0), pair);
+      }
+    }
+    cp_async_wait_all();
+    if (valid) {
+      int t0 = 0, t1 = 0;
+#pragma unroll
+      for (int k = 0; k < ND + 1; ++k) {
+        const int x = stage[k * nt + tid];
+        if (k < c0) t0 += x; else t1 += x;
+      }
+      D[d0 * tile + e] = t0;
+      if (d1 > d0) D[d1 * tile + e] = t1;
+    }
+    __syncthreads();
+    if (tid >= tile || !valid) return;
+    cascade_fold<NW, 1>([&](int d, int) { return D[d * tile + tid]; }, &eab, res);
   } else {
-    const int* Db = src + static_cast<size_t>(b) * ND * plane + ij;
-    cascade_fold<NW, 1>([&](int d, int) { return Db[d * plane]; }, &eab, res);
+    if (!valid) return;
+    const int* Dp = src + b * (ND * plane) + ij;
+    int dv[ND];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) dv[d] = __ldg(Dp + d * plane);
+    cascade_fold<NW, 1>([&](int d, int) { return dv[d]; }, &eab, res);
   }
-  float* ob = Out + static_cast<size_t>(b) * NW * plane + ij;
+  float* ob = Out + b * (NW * plane) + ij;
 #pragma unroll
   for (int w = 0; w < NW; ++w) ob[w * plane] = res[0][w];
 }
@@ -241,97 +310,102 @@ __global__ void __launch_bounds__(CX * CY)
 // the three pl_map chains of the IPM step
 // ---------------------------------------------------------------------------
 
-// One operand of a chain: a word pointer per word, each with its own element
-// strides over the broadcast [L, D1, D2] shape (0 on a broadcast axis), so a
-// [L, 1, 1] scalar or a batch-broadcast matrix is read by index, never
-// materialized.
-struct Words {
+constexpr int PLMAP_THREADS = 64;
+
+// How an operand's words are read over the broadcast [L, D1, D2] shape
+// (dd/kernels.py plmap_operand classifies them):
+//   OP_GENERAL  each word through its own strides (s0, s1, s2);
+//   OP_PLANE    every word with the strides (s0, s1, 1) of word 0: one
+//               offset i s1 + j for all words;
+//   OP_SCALAR   every word with the strides (s0, 0, 0) of word 0: one value
+//               per l (the [L, 1, 1] mu and alpha), one address for the
+//               whole block.
+// Per-l offsets are 64-bit, offsets within a plane 32-bit (the wrapper
+// checks that they fit).
+enum : int { OP_GENERAL = 0, OP_PLANE = 1, OP_SCALAR = 2 };
+
+struct Operand {
   const float* w[MAX_NW];
-  long long s[MAX_NW][3];
+  long long s0[MAX_NW];
+  int s1[MAX_NW], s2[MAX_NW];
+  int kind;
 };
 
+// Words k < N of element (l, i, j) into v.
 template <int N>
-__device__ __forceinline__ void load_words(const Words& op, long long l, long long i,
-                                           long long j, float* v) {
+__device__ __forceinline__ void load_op(const Operand& op, int l, int i, int j, float* v) {
+  if (op.kind == OP_GENERAL) {
 #pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = op.w[k][l * op.s[k][0] + i * op.s[k][1] + j * op.s[k][2]];
-}
-
-struct Elem {
-  long long t, l, i, j;
-};
-
-__device__ __forceinline__ bool elem_of(long long total, int D1, int D2, Elem& e) {
-  e.t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e.t >= total) return false;
-  const long long per = static_cast<long long>(D1) * D2;
-  e.l = e.t / per;
-  const long long ij = e.t % per;
-  e.i = ij / D2;
-  e.j = ij % D2;
-  return true;
-}
-
-// X + dX (the corrector sum, step.py:1556-1568).
-template <int NW>
-__global__ void plmap_add(Words x, Words d, float* __restrict__ out, int L, int D1, int D2) {
-  const long long total = static_cast<long long>(L) * D1 * D2;
-  Elem e;
-  if (!elem_of(total, D1, D2, e)) return;
-  float xv[NW], dv[NW], r[NW];
-  load_words<NW>(x, e.l, e.i, e.j, xv);
-  load_words<NW>(d, e.l, e.i, e.j, dv);
-  exp_add<NW>(xv, dv, r);
+    for (int k = 0; k < N; ++k)
+      v[k] = __ldg(op.w[k] + l * op.s0[k] + (i * op.s1[k] + j * op.s2[k]));
+  } else {
+    const long long o = l * op.s0[0];
+    const int off = op.kind == OP_PLANE ? i * op.s1[0] + j : 0;
 #pragma unroll
-  for (int k = 0; k < NW; ++k) out[k * total + e.t] = r[k];
-}
-
-// X + alpha dX with alpha as three words padded by alpha0 * 0
-// (step.py:1244-1260).
-template <int NW>
-__global__ void plmap_axpy(Words x, Words d, Words a, float* __restrict__ out, int L, int D1,
-                           int D2) {
-  const long long total = static_cast<long long>(L) * D1 * D2;
-  Elem e;
-  if (!elem_of(total, D1, D2, e)) return;
-  float xv[NW], dv[NW], av[NW], p[NW], r[NW];
-  load_words<NW>(x, e.l, e.i, e.j, xv);
-  load_words<NW>(d, e.l, e.i, e.j, dv);
-  load_words<3>(a, e.l, e.i, e.j, av);
-  const float z = fmul(av[0], 0.0f);
-#pragma unroll
-  for (int k = 3; k < NW; ++k) av[k] = z;
-  exp_mul<NW>(dv, av, p);
-  exp_add<NW>(xv, p, r);
-#pragma unroll
-  for (int k = 0; k < NW; ++k) out[k * total + e.t] = r[k];
-}
-
-// R = mask (mu I - XY [- dX dY]), mu I formed word by word as mu * eye
-// (step.py:1387-1407); eye is read from the index, mask is one word.
-template <int NW, bool CORR>
-__global__ void plmap_residual(Words mu, Words mask, Words xy, Words dxdy,
-                               float* __restrict__ out, int L, int D1, int D2) {
-  const long long total = static_cast<long long>(L) * D1 * D2;
-  Elem e;
-  if (!elem_of(total, D1, D2, e)) return;
-  float mv[NW], xv[NW], r[NW], mk;
-  load_words<NW>(mu, e.l, e.i, e.j, mv);
-  load_words<NW>(xy, e.l, e.i, e.j, xv);
-  load_words<1>(mask, e.l, e.i, e.j, &mk);
-  const float eye = e.i == e.j ? 1.0f : 0.0f;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) mv[k] = fmul(mv[k], eye);
-  exp_sub<NW>(mv, xv, r);
-  if constexpr (CORR) {
-    float dv[NW], r2[NW];
-    load_words<NW>(dxdy, e.l, e.i, e.j, dv);
-    exp_sub<NW>(r, dv, r2);
-#pragma unroll
-    for (int k = 0; k < NW; ++k) r[k] = r2[k];
+    for (int k = 0; k < N; ++k) v[k] = __ldg(op.w[k] + o + off);
   }
+}
+
+// One chain over [L, D1, D2] (out [NW, L, D1, D2], contiguous), one element
+// a thread. Block (x, y, l) of blockDim (TX, PLMAP_THREADS / TX) covers
+// columns x TX .. x TX + TX - 1 and rows y TY .. y TY + TY - 1 of plane l
+// (TX from dd/kernels.py plmap_block). All operand loads are issued before
+// the chain, whose op sequence is the plain version's:
+//   FN 0  X + dX (the corrector sum, step.py:1556-1568), ops (x, d);
+//   FN 1  X + alpha dX with alpha as three words padded by alpha0 * 0
+//         (step.py:1244-1260), ops (x, d, alpha);
+//   FN 2  R = mask (mu I - XY), mu I formed word by word as mu * eye
+//         (step.py:1387-1407), ops (mu, mask, xy);
+//   FN 3  FN 2 less dX dY, ops (mu, mask, xy, dxdy).
+// Two columns a thread, with 8-byte vector loads and stores where aligned,
+// measured slower on an H100 (fewer warps, each with two chains).
+template <int NW, int FN>
+__global__ void __launch_bounds__(PLMAP_THREADS)
+    plmap(Operand o0, Operand o1, Operand o2, Operand o3, float* __restrict__ out, int D1,
+          int D2) {
+  const int l = blockIdx.z;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= D1 || j >= D2) return;
+  float r[NW];
+  if constexpr (FN == 0) {
+    float xv[NW], dv[NW];
+    load_op<NW>(o0, l, i, j, xv);
+    load_op<NW>(o1, l, i, j, dv);
+    exp_add<NW>(xv, dv, r);
+  } else if constexpr (FN == 1) {
+    float xv[NW], dv[NW], av[NW], p[NW];
+    load_op<NW>(o0, l, i, j, xv);
+    load_op<NW>(o1, l, i, j, dv);
+    load_op<3>(o2, l, i, j, av);
+    const float z = fmul(av[0], 0.0f);
 #pragma unroll
-  for (int k = 0; k < NW; ++k) out[k * total + e.t] = fmul(r[k], mk);
+    for (int k = 3; k < NW; ++k) av[k] = z;
+    exp_mul<NW>(dv, av, p);
+    exp_add<NW>(xv, p, r);
+  } else {
+    float mv[NW], mk, xv[NW], dv[NW];
+    load_op<NW>(o0, l, i, j, mv);
+    load_op<1>(o1, l, i, j, &mk);
+    load_op<NW>(o2, l, i, j, xv);
+    if constexpr (FN == 3) load_op<NW>(o3, l, i, j, dv);
+    const float eye = i == j ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) mv[k] = fmul(mv[k], eye);
+    exp_sub<NW>(mv, xv, r);
+    if constexpr (FN == 3) {
+      float r2[NW];
+      exp_sub<NW>(r, dv, r2);
+#pragma unroll
+      for (int k = 0; k < NW; ++k) r[k] = r2[k];
+    }
+#pragma unroll
+    for (int k = 0; k < NW; ++k) r[k] = fmul(r[k], mk);
+  }
+  const size_t ws = static_cast<size_t>(gridDim.z) * D1 * D2;  // word stride of out
+  float* ob = out + static_cast<size_t>(l) * D1 * D2 + (i * D2 + j);
+#pragma unroll
+  for (int k = 0; k < NW; ++k) ob[k * ws] = r[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -560,8 +634,6 @@ __global__ void __launch_bounds__(TRI_THREADS)
   }
 }
 
-constexpr int THREADS = 256;
-
 // The extraction's tile: CQ columns across (at least 8, a sector of a word
 // row, where the rows are that long; no more than the row has; on side a
 // wider until at most EX_MAX_SPLIT tiles share a row), RT = EX_THREADS /
@@ -597,38 +669,49 @@ int launch_extract(const WordPtrs& w, int8_t* limbs, int* exps, int B, int d0, i
   return 0;
 }
 
+// tile: output elements a block (dd/kernels.py cascade_tile), a power of
+// two in 8..CASCADE_TILE_MAX.
 template <int NW>
 int launch_cascade(const int* src, const int* eab, float* out, int B, int m, int n, int from_c,
-                   cudaStream_t s) {
-  dim3 grid(ceil_div(n, CX), ceil_div(m, CY), B);
-  dim3 block(CX, CY);
-  if (from_c)
-    cascade<NW, true><<<grid, block, 0, s>>>(src, eab, out, m, n);
-  else
-    cascade<NW, false><<<grid, block, 0, s>>>(src, eab, out, m, n);
-  return 0;
+                   int tile, cudaStream_t s) {
+  static unsigned long long opted = 0;
+  const dim3 grid(static_cast<unsigned>(ceil_div(static_cast<long>(m) * n, tile)), B);
+  if (!from_c) {
+    cascade<NW, false><<<grid, tile, 0, s>>>(src, eab, out, m, n, tile);
+    return 0;
+  }
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const cudaError_t e = smem_opt_in(cascade<NW, true>, opted, dev);
+  if (e == cudaSuccess)
+    cascade<NW, true><<<grid, tile * cascade_slices(NW), sizeof(int) * cascade_smem_ints(NW, tile),
+                        s>>>(src, eab, out, m, n, tile);
+  return static_cast<int>(e);
 }
 
 // fn: 0 add (x, d), 1 axpy (x, d, a), 2 residual (mu, mask, xy),
-// 3 residual with the corrector term (mu, mask, xy, dxdy)
+// 3 residual with the corrector term (mu, mask, xy, dxdy); tx: threads of a
+// block along j (dd/kernels.py plmap_block).
 template <int NW>
-int launch_plmap(int fn, const Words* ops, float* out, int L, int D1, int D2, cudaStream_t s) {
-  const long total = static_cast<long>(L) * D1 * D2;
-  const long blocks = ceil_div(total, THREADS);
+int launch_plmap(int fn, const Operand* ops, float* out, int L, int D1, int D2, int tx,
+                 cudaStream_t s) {
+  const int ty = PLMAP_THREADS / tx;
+  const long gy = ceil_div(D1, ty);
+  if (gy > 65535 || L > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(ceil_div(D2, tx)), static_cast<unsigned>(gy), L);
+  const dim3 block(tx, ty);
   switch (fn) {
     case 0:
-      plmap_add<NW><<<blocks, THREADS, 0, s>>>(ops[0], ops[1], out, L, D1, D2);
+      plmap<NW, 0><<<grid, block, 0, s>>>(ops[0], ops[1], ops[2], ops[3], out, D1, D2);
       break;
     case 1:
-      plmap_axpy<NW><<<blocks, THREADS, 0, s>>>(ops[0], ops[1], ops[2], out, L, D1, D2);
+      plmap<NW, 1><<<grid, block, 0, s>>>(ops[0], ops[1], ops[2], ops[3], out, D1, D2);
       break;
     case 2:
-      plmap_residual<NW, false><<<blocks, THREADS, 0, s>>>(ops[0], ops[1], ops[2], ops[3], out,
-                                                           L, D1, D2);
+      plmap<NW, 2><<<grid, block, 0, s>>>(ops[0], ops[1], ops[2], ops[3], out, D1, D2);
       break;
     case 3:
-      plmap_residual<NW, true><<<blocks, THREADS, 0, s>>>(ops[0], ops[1], ops[2], ops[3], out,
-                                                          L, D1, D2);
+      plmap<NW, 3><<<grid, block, 0, s>>>(ops[0], ops[1], ops[2], ops[3], out, D1, D2);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -702,29 +785,45 @@ int clrs_limb_extract(const void* const* words, const long long* strides, int8_t
   return static_cast<int>(cudaGetLastError());
 }
 
+// tile: output elements a block (dd/kernels.py cascade_tile). Offsets within a
+// member of C are 32-bit: (L + 1) L m n < 2^31.
 int clrs_cascade(const int* src, const int* eab, float* out, int B, int m, int n, int nw,
-                 int from_c, void* stream) {
+                 int from_c, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || m <= 0 || n <= 0 || B > 65535 || ceil_div(m, CY) > 65535)
+  const long limbs = limb_count(nw);
+  if (B <= 0 || m <= 0 || n <= 0 || B > 65535 || nw < 5 || nw > MAX_NW ||
+      (limbs + 1) * limbs * m * n >= (1L << 31) || tile < 8 || tile > CASCADE_TILE_MAX ||
+      (tile & (tile - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  CLRS_DISPATCH_NW(nw, launch_cascade<NWc>(src, eab, out, B, m, n, from_c, s));
+  CLRS_DISPATCH_NW(nw, launch_cascade<NWc>(src, eab, out, B, m, n, from_c, tile, s));
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: [4][MAX_NW] word pointers and strides: [4][MAX_NW][3] element
-// strides of the operands in launch_plmap's order (host arrays).
-int clrs_plmap(int fn, const void* const* ptrs, const long long* strides, float* out, int L,
-               int D1, int D2, int nw, void* stream) {
+// ptrs: [4][MAX_NW] word pointers, strides: [4][MAX_NW][3] element strides
+// and kinds: [4] OP_* of the operands in launch_plmap's order (host arrays;
+// dd/kernels.py plmap_operand). tx: 8, 16 or 32.
+int clrs_plmap(int fn, const void* const* ptrs, const long long* strides, const int* kinds,
+               float* out, int L, int D1, int D2, int nw, int tx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fn < 0 || fn > 3 || L <= 0 || D1 <= 0 || D2 <= 0)
+  if (fn < 0 || fn > 3 || L <= 0 || D1 <= 0 || D2 <= 0 || (tx != 8 && tx != 16 && tx != 32) ||
+      static_cast<long>(D1) * D2 >= (1L << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  Words ops[4];
-  for (int k = 0; k < 4; ++k)
+  Operand ops[4];
+  for (int k = 0; k < 4; ++k) {
+    if (kinds[k] < OP_GENERAL || kinds[k] > OP_SCALAR) return static_cast<int>(cudaErrorInvalidValue);
+    ops[k].kind = kinds[k];
     for (int w = 0; w < MAX_NW; ++w) {
+      const long long* st = strides + (k * MAX_NW + w) * 3;
+      // offsets within a plane must fit in 32 bits
+      if (st[1] < 0 || st[2] < 0 || (D1 - 1) * st[1] + (D2 - 1) * st[2] >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
       ops[k].w[w] = static_cast<const float*>(ptrs[k * MAX_NW + w]);
-      for (int a = 0; a < 3; ++a) ops[k].s[w][a] = strides[(k * MAX_NW + w) * 3 + a];
+      ops[k].s0[w] = st[0];
+      ops[k].s1[w] = static_cast<int>(st[1]);
+      ops[k].s2[w] = static_cast<int>(st[2]);
     }
-  CLRS_DISPATCH_NW(nw, launch_plmap<NWc>(fn, ops, out, L, D1, D2, s));
+  }
+  CLRS_DISPATCH_NW(nw, launch_plmap<NWc>(fn, ops, out, L, D1, D2, tx, s));
   return static_cast<int>(cudaGetLastError());
 }
 

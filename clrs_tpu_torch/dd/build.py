@@ -64,10 +64,10 @@ def _declare(lib):
     lib.clrs_chol.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.clrs_tri_solve.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
     lib.clrs_int8_gemm.argtypes = [vp, vp, vp, i, i, i, i, vp]
-    lib.clrs_cascade.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    lib.clrs_cascade.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
     lib.clrs_plmap.argtypes = [i, ctypes.POINTER(vp),
-                               ctypes.POINTER(ctypes.c_longlong), vp, i, i,
-                               i, i, vp]
+                               ctypes.POINTER(ctypes.c_longlong),
+                               ctypes.POINTER(i), vp, i, i, i, i, i, vp]
     for fn in (lib.clrs_limb_extract, lib.clrs_limb_gemm, lib.clrs_chol,
                lib.clrs_tri_solve, lib.clrs_int8_gemm, lib.clrs_cascade,
                lib.clrs_plmap):

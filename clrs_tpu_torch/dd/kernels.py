@@ -17,9 +17,9 @@ so a run can show which route it took (:func:`reset_counts`,
 | cascade_from_diags | cascade<FROM_DIAGS>        | _cascade_call / pl_cascade                     |
 | chol_batched       | chol_batched (chol.cu)     | _chol_call / pl_cholesky_b                     |
 | tri_solve_batched  | tri_solve_batched<TRANS>   | _tril_call, _tril_t_call / pl_solve_tril(_t)_b |
-| plmap_add          | plmap_add                  | pl_map, corrector sum (solver/step.py:1556)    |
-| plmap_axpy         | plmap_axpy                 | pl_map, state update (solver/step.py:1244)     |
-| plmap_residual     | plmap_residual<CORR>       | pl_map, residual R (solver/step.py:1387)       |
+| plmap_add          | plmap<NW, 0>               | pl_map, corrector sum (solver/step.py:1556)    |
+| plmap_axpy         | plmap<NW, 1>               | pl_map, state update (solver/step.py:1244)     |
+| plmap_residual     | plmap<NW, 2 or 3>          | pl_map, residual R (solver/step.py:1387)       |
 
 The two forms of tri_solve_batched are also counted apart
 (``tri_solve_batched.launches_by_form``, keyed by ``trans``, and in
@@ -613,14 +613,52 @@ def int8_gemm(a, b):
     return c
 
 
+# csrc/kernels.cu: output elements a cascade block owns
+CASCADE_TILE_MIN, CASCADE_TILE_MAX = 8, 32
+
+
+def cascade_tile(B, m, n, sms):
+    """Output elements a cascade block owns: the largest power of two in
+    CASCADE_TILE_MIN..CASCADE_TILE_MAX whose B ceil(m n / tile) blocks still
+    cover the ``sms`` SMs (the smallest where none does)."""
+    tile = CASCADE_TILE_MAX
+    while tile > CASCADE_TILE_MIN and B * -(-(m * n) // tile) < sms:
+        tile //= 2
+    return tile
+
+
+def cascade_slices(nw):
+    """Threads an output element takes in cascade<FROM_C>'s first phase
+    (csrc/kernels.cu cascade_slices): each sums two diagonals."""
+    return (limb_params(nw)[1] + 1) // 2
+
+
+def cascade_smem_bytes(nw, tile):
+    """Dynamic shared memory of a cascade<FROM_C> block (csrc/kernels.cu
+    cascade_smem_ints): the int32 diagonal sums [ndiag, tile] and the
+    staged limb pairs [ndiag + 1, tile slices]."""
+    nd = limb_params(nw)[1]
+    return 4 * (nd * tile + (nd + 1) * tile * cascade_slices(nw))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _cascade_launch(src, eab, nw, m, n, from_c, name):
     from .build import library
 
     Bt = src.shape[0]
+    L, _ = limb_params(nw)
+    if (L + 1) * L * m * n >= 1 << 31:
+        raise ValueError(f"{name}: the kernel indexes a member of C in 32 "
+                         f"bits; (L + 1) L m n = {(L + 1) * L * m * n}")
     src, eab = src.contiguous(), eab.contiguous()
     out = torch.empty((Bt, nw, m, n), dtype=torch.float32, device=src.device)
+    tile = cascade_tile(Bt, m, n, _sm_count(src.device))
     rc = library().clrs_cascade(_ptr(src), _ptr(eab), _ptr(out), Bt, m, n,
-                                nw, int(from_c), _stream())
+                                nw, int(from_c), tile, _stream())
     _launched(rc, name)
     return _unstack(out)
 
@@ -660,12 +698,44 @@ def cascade_from_diags(diags, eab, nw):
 
 
 _PLMAP_FN = {"add": 0, "axpy": 1, "residual": 2, "residual_corr": 3}
+# how the chain kernels read an operand's words (csrc/kernels.cu OP_*)
+OP_GENERAL, OP_PLANE, OP_SCALAR = 0, 1, 2
+
+
+def plmap_block(D2):
+    """Threads of a chain block along j (8, 16 or 32; the rest of its 64
+    along i), one column a thread: the width whose column tiles leave the
+    fewest idle columns at the ragged edge, the widest on a tie."""
+    return min((32, 16, 8), key=lambda tx: (-(-D2 // tx) * tx - D2, -tx))
+
+
+def plmap_operand(op, shape3):
+    """(kind, [(data_ptr, (s0, s1, s2)) per word]) of one chain operand
+    whose words broadcast to ``shape3`` [L, D1, D2]: element strides over
+    that shape, 0 on an axis of size 1. OP_SCALAR where every word has the
+    strides (s0, 0, 0) of word 0, OP_PLANE where every word has the strides
+    (s0, s1, 1) of word 0, OP_GENERAL otherwise. Raises where an offset
+    within a plane does not fit in 32 bits."""
+    words = []
+    for c in op:
+        c3 = _as3(c).expand(shape3)
+        st = tuple(0 if d == 1 else s for d, s in zip(shape3, c3.stride()))
+        if (shape3[1] - 1) * st[1] + (shape3[2] - 1) * st[2] >= 1 << 31:
+            raise ValueError(f"pl_map chains index a plane in 32 bits; "
+                             f"strides {c3.stride()} over {shape3}")
+        words.append((c3.data_ptr(), st))
+    st0 = words[0][1]
+    if any(st != st0 for _, st in words):
+        return OP_GENERAL, words
+    if st0[1] == 0 and st0[2] == 0:
+        return OP_SCALAR, words
+    return (OP_PLANE if st0[2] == 1 else OP_GENERAL), words
 
 
 def _plmap_launch(fn, ops, nws, name):
     """Launch one chain kernel on operands ``ops`` (word tuples, word counts
-    ``nws``); every word is passed where it lies, with its strides over the
-    broadcast [L, D1, D2] shape. Returns the output words [L, *dims]."""
+    ``nws``); every word is passed where it lies, classified by
+    :func:`plmap_operand`. Returns the output words [L, *dims]."""
     from .build import library
 
     nw = nws[0]
@@ -674,23 +744,22 @@ def _plmap_launch(fn, ops, nws, name):
     dev = ops[0][0].device
     ptrs = (ctypes.c_void_p * (4 * _MAX_NW))()
     strides = (ctypes.c_longlong * (4 * _MAX_NW * 3))()
-    keep = []
+    kinds = (ctypes.c_int * 4)()
     for k, (op, nwk) in enumerate(zip(ops, nws)):
         if len(op) != nwk:
             raise ValueError(f"{name}: operand {k} has {len(op)} words, "
                              f"expected {nwk}")
-        for w, c in enumerate(op):
+        for c in op:
             if c.dtype != torch.float32 or c.device != dev:
                 raise ValueError(f"{name}: words must be float32 tensors "
                                  f"on {dev}, got {c.dtype} on {c.device}")
-            c3 = _as3(c).expand(shape3)
-            keep.append(c3)
-            ptrs[k * _MAX_NW + w] = c3.data_ptr()
-            for a, s in enumerate(c3.stride()):
-                strides[(k * _MAX_NW + w) * 3 + a] = s
+        kinds[k], words = plmap_operand(op, shape3)
+        for w, (p, st) in enumerate(words):
+            ptrs[k * _MAX_NW + w] = p
+            strides[(k * _MAX_NW + w) * 3:(k * _MAX_NW + w + 1) * 3] = st
     out = torch.empty((nw,) + shape3, dtype=torch.float32, device=dev)
-    rc = library().clrs_plmap(_PLMAP_FN[fn], ptrs, strides, _ptr(out),
-                              *shape3, nw, _stream())
+    rc = library().clrs_plmap(_PLMAP_FN[fn], ptrs, strides, kinds, _ptr(out),
+                              *shape3, nw, plmap_block(shape3[2]), _stream())
     _launched(rc, name)
     return tuple(out[k].view(out_shape) for k in range(nw))
 

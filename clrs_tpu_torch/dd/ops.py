@@ -224,7 +224,10 @@ def exp_div(x, y):
 
 def _rsqrt_core(x):
     nw = len(x)
-    r = (1.0 / torch.sqrt(x[0]),)        # IEEE seed, as the CUDA kernels
+    # the IEEE seed of the CUDA kernels, __fdiv_rn(1, __fsqrt_rn(x)): f32
+    # torch.sqrt on the CPU is not correctly rounded on every build; the
+    # f64 root rounded to f32 is (53 >= 2 * 24 + 2)
+    r = (1.0 / torch.sqrt(x[0].double()).float(),)
     w = 1
     while w < nw:
         w = min(2 * w, nw)

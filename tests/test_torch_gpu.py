@@ -377,6 +377,115 @@ def test_chain_kernels_match_plain_on_card(nw, cuda):
     assert out[0].shape == (L, n, n) and _same(out, K.plmap_add_plain(mu, x))
 
 
+def _bits(xs, ys):
+    """Bit-identical word tuples (-0.0 and +0.0 differ, equal NaNs agree)."""
+    return all(a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+               for a, b in zip(xs, ys))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw, B, m, n, k, extreme", [
+    (5, 4, 22, 22, 11, False),     # the Schur pairing of delsarte(3,10)
+    (5, 1, 100, 130, 37, False),   # above the route threshold
+    (6, 1, 1, 1, 3, False),        # one element: one block, one thread
+    (7, 3, 1, 17, 5, False),       # m 1
+    (8, 2, 17, 1, 4, False),       # n 1
+    (5, 300, 3, 5, 2, False),      # B a few hundred, tiny members
+    (6, 2, 33, 65, 9, False),      # m, n multiples of no tile
+    (5, 1, 33, 65, 8192, True),    # limbs +-65 at the deepest k: largest C
+    (8, 1, 27, 40, 8192, True),
+])
+def test_cascade_shapes_match_plain_on_card(nw, B, m, n, k, extreme, cuda):
+    """cascade_from_c and cascade_from_diags equal their plain versions bit
+    for bit at the tilings and sizes the kernel treats apart, and with the
+    largest diagonal sums an exact product can give."""
+    rng = np.random.default_rng(50 + m + n)
+    L, _ = K.limb_params(nw)
+    A2 = _limbs(rng, (B, L * m, k), extreme).to(cuda)
+    B2 = _limbs(rng, (B, k, L * n), extreme).to(cuda)
+    C = K.int8_gemm_plain(A2, B2)
+    eab = torch.from_numpy(rng.integers(-40, 41, (B, m, n))
+                           .astype(np.int32)).to(cuda)
+    K.reset_counts()
+    assert _bits(K.cascade_from_c(C, eab, nw),
+                 K.cascade_from_c_plain(C, eab, nw))
+    diags = torch.stack(K._diags_from_c(C, L, m, n, K.limb_params(nw)[1]),
+                        1).contiguous()
+    assert _bits(K.cascade_from_diags(diags, eab, nw),
+                 K.cascade_from_diags_plain(diags, eab, nw))
+    c = K.counts()
+    assert c["cascade_from_c"] == c["cascade_from_diags"] == 1
+
+
+def _chain_operands(rng, nw, L, n, form, cuda):
+    """x, d as [L, n, n] words laid out as ``form`` says: separate
+    contiguous tensors, views of one word-major stack (as the step's words
+    lie), transposed views, views sliced out of larger planes (pointers off
+    alignment), or one matrix broadcast over L."""
+    def draw(scale):
+        return rng.standard_normal((L, n, n)) * scale
+
+    def lay(v):
+        if form == "stack":
+            w = _t(split_words(v, nw), cuda)
+            st = torch.stack(w, 1).contiguous()
+            return tuple(st[:, i] for i in range(nw))
+        if form == "transposed":
+            return tuple(c.transpose(1, 2) for c in _t(split_words(
+                v.transpose(0, 2, 1).copy(), nw), cuda))
+        if form == "sliced":
+            big = np.zeros((L, n + 1, n + 1))
+            big[:, 1:, 1:] = v
+            return tuple(c[:, 1:, 1:] for c in _t(split_words(big, nw), cuda))
+        if form == "shared":
+            return tuple(c.expand(L, n, n) for c in
+                         _t(split_words(v[:1], nw), cuda))
+        return _t(split_words(v, nw), cuda)
+
+    return lay(draw(10.0)), lay(draw(1e-3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw, L, n, form", [
+    (5, 2, 96, "contiguous"), (5, 2, 96, "stack"), (6, 1, 96, "transposed"),
+    (7, 4, 11, "sliced"), (8, 3, 96, "sliced"), (5, 4, 1, "contiguous"),
+    (8, 2, 11, "shared"), (6, 3, 10, "stack"), (7, 1, 95, "transposed"),
+    (8, 2, 96, "stack"),
+])
+def test_chain_operand_forms_match_plain_on_card(nw, L, n, form, cuda):
+    """The three chains equal their plain versions bit for bit with
+    operands broadcast, transposed and sliced, at L 1-4 and n 1-96."""
+    rng = np.random.default_rng(60 + n + L)
+    x, d = _chain_operands(rng, nw, L, n, form, cuda)
+    mu = tuple(c.reshape(1, 1, 1).expand(L, 1, 1) for c in
+               _t(split_words(rng.random(1) * 1e3, nw), cuda))
+    alpha = tuple(c.expand(L, 1, 1) for c in
+                  _t(split_words(rng.random((1, 1, 1)), 3), cuda))
+    mask = torch.ones((L, n, n), device=cuda)
+    mask[-1, -1, :] = 0.0
+    if form == "transposed":
+        mask = mask.transpose(1, 2)
+    assert _bits(K.plmap_add(x, d), K.plmap_add_plain(x, d))
+    assert _bits(K.plmap_axpy(x, d, alpha), K.plmap_axpy_plain(x, d, alpha))
+    for corr in (None, d):
+        assert _bits(K.plmap_residual(mu, mask, x, corr),
+                     K.plmap_residual_plain(mu, mask, x, corr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw, B, n", [(5, 2, 64), (8, 2, 64)])
+def test_cpu_plain_cholesky_equals_card_kernel(nw, B, n, cuda):
+    """The plain Cholesky on the CPU and chol_batched on the card give the
+    same words bit for bit: the CPU's rsqrt seed is the IEEE one the
+    kernel computes."""
+    A = spd_words(B, n, nw, 0)
+    Lc, okc = K.chol_plain(_t(A, "cpu"))
+    Lk, okk = K.chol_batched(_t(A, cuda))
+    assert torch.equal(okc, okk.cpu())
+    assert _bits(Lc, tuple(c.cpu() for c in Lk))
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
     """A CUDA operand the kernels do not take raises; it never runs the
@@ -397,14 +506,25 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
 
 
 @pytest.mark.gpu
-def test_step_on_card_matches_cpu(cuda):
+def test_step_on_card_matches_cpu(cuda, monkeypatch):
     """Two steps of delsarte(3,3) on the card (kernels) and on the CPU
-    (plain versions) agree at rel 1e-13: the expansion words agree bit for
-    bit, the step lengths come from two f64 eigensolvers. Both take the
-    same route: a kernel launches on the card where its plain version runs
-    on the CPU, and the split route and the chain kernels are among them."""
+    (plain versions): the expansion words agree bit for bit up to the
+    first f64 eigensolver call (its input, L^-1 dM L^-T of the first
+    step-length bound, is compared word by word), and the five info
+    scalars of both steps agree at rel 1e-13, since the step lengths come
+    from two f64 eigensolvers. Both take the same route: a kernel launches
+    on the card where its plain version runs on the CPU, and the split
+    route and the chain kernels are among them."""
     sdp = ct.ClusteredLowRankSDP(delsarte(ct, 3))
-    rows, routes = {}, {}
+    rows, routes, first_eig = {}, {}, {}
+    eig_lo_bound = TS._eig_lo_bound
+
+    def recording(W2, eig_safety):
+        first_eig.setdefault(W2[0].device.type,
+                             tuple(c.cpu().clone() for c in W2))
+        return eig_lo_bound(W2, eig_safety)
+
+    monkeypatch.setattr(TS, "_eig_lo_bound", recording)
     for dev in ("cpu", cuda):
         ds = TS.DeviceSDP(sdp, nw=5, device=dev)
         step = TS.make_step_body(ds, **STEP_KW)
@@ -429,5 +549,7 @@ def test_step_on_card_matches_cpu(cuda):
     assert {"int8_gemm", "cascade_from_c", "plmap_add", "plmap_axpy",
             "plmap_residual", "chol_batched", "tri_solve_batched",
             "limb_extract"} <= routes[True]
+    assert set(first_eig) == {"cpu", "cuda"}
+    assert _bits(first_eig["cpu"], first_eig["cuda"])
     for a, b in zip(rows[False], rows[True]):
         assert a == pytest.approx(b, rel=1e-13, abs=1e-18)

@@ -4,30 +4,38 @@ Runs ``--iters`` iterations of delsarte(3, d) on the card with the calls of
 the kernel recorded on their way to its wrapper: the triangular solve and
 the Cholesky through ``clrs_tpu_torch.dd.linalg`` (every caller of both;
 ``--kernel tri`` records (nw, B, n, m, trans), ``--kernel chol`` (nw, B,
-n)); the split route's int8 product, the fused limb GEMM and the limb
-extraction through ``clrs_tpu_torch.dd.limb_gemm`` (their only caller;
-``--kernel int8_gemm`` records (B, M, K, N), ``--kernel limb_gemm`` (nw, B,
-m, k, n), ``--kernel limb_extract`` (nw, B, d0, d1, side, layout)). Then it
-times the kernel at every recorded shape on random inputs of that shape
-with chip_smoke.py's ``time_ms`` (CUDA events around calls queued behind a
-spin kernel): a solve on an SPD matrix's factor from the plain Cholesky and
+n)); the split route's int8 product and cascade, the fused limb GEMM and
+the limb extraction through ``clrs_tpu_torch.dd.limb_gemm`` (their only
+caller; ``--kernel int8_gemm`` records (B, M, K, N), ``--kernel cascade``
+(nw, B, m, n, form), ``--kernel limb_gemm`` (nw, B, m, k, n), ``--kernel
+limb_extract`` (nw, B, d0, d1, side, layout)); the three pl_map chains
+through ``clrs_tpu_torch.solver.step`` (``--kernel plmap`` records (chain,
+nw, L, n), chain one of add, axpy, residual, residual_corr). Then it times
+the kernel at every recorded shape on random inputs of that shape with
+chip_smoke.py's ``time_ms`` (CUDA events around calls queued behind a spin
+kernel): a solve on an SPD matrix's factor from the plain Cholesky and
 standard normal right-hand sides, the Cholesky on SPD matrices, the int8
 product on limbs drawn from [-65, 65], the extraction on standard normal
 words with rows scaled by powers of ten, the limb GEMM on such words'
-limbs (from the plain extraction). ``--kernel`` takes a comma list (one
-solve records them all); ``--shape kernel:a,b,...`` times a shape of that
-kernel besides (``--d 0``: no solve, only those). Prints one JSON line per
-kernel: per shape the calls per iteration, ms per call, ms per iteration
-and the bound of chip_smoke.py's ``cost_*`` (the least time the card could
-take), and the sums (per form for the solve). The package and
+limbs (from the plain extraction), the cascade on int32 C (form ``c``) or
+diagonal sums (form ``diags``) drawn from +-2^24, the chains on standard
+normal [L, n, n] words with mu and alpha as [L, 1, 1] broadcast scalars.
+``--kernel`` takes a comma list (one solve records them all); ``--shape
+kernel:a,b,...`` times a shape of that kernel besides (``--d 0``: no
+solve, only those). Prints one JSON line per kernel: per shape the calls
+per iteration, ms per call, ms per iteration and the bound of
+chip_smoke.py's ``cost_*`` (the least time the card could take), and the
+sums (per form for the solve, per chain for the chains). The package and
 chip_smoke.py are imported from beside the script, so a copy of it in
 another checkout times that checkout's kernels. On a machine with a card:
 
     python3 torch_kernel_timing.py --kernel tri --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel chol,int8_gemm --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel limb_gemm,limb_extract --d 95 --iters 1
+    python3 torch_kernel_timing.py --kernel cascade,plmap --d 10 --iters 1
     python3 torch_kernel_timing.py --kernel chol --d 0 --shape chol:5,2,64
     python3 torch_kernel_timing.py --kernel limb_extract --d 0 --shape limb_extract:5,4,192,64,a,limb
+    python3 torch_kernel_timing.py --kernel cascade --d 0 --shape cascade:5,4,22,22,diags
 """
 
 from __future__ import annotations
@@ -40,20 +48,25 @@ import sys
 from fractions import Fraction
 from pathlib import Path
 
-# kernel -> (module attribute of clrs_tpu_torch.dd whose K is recorded,
-# wrapper name)
-RECORDED = {"tri": ("linalg", "tri_solve_batched"),
-            "chol": ("linalg", "chol_batched"),
-            "int8_gemm": ("limb_gemm", "int8_gemm"),
-            "limb_gemm": ("limb_gemm", "limb_gemm"),
-            "limb_extract": ("limb_gemm", "limb_extract")}
+# kernel -> (module of clrs_tpu_torch whose kernels-module attribute is
+# recorded, that attribute, the wrappers recorded)
+RECORDED = {"tri": ("dd.linalg", "K", ("tri_solve_batched",)),
+            "chol": ("dd.linalg", "K", ("chol_batched",)),
+            "int8_gemm": ("dd.limb_gemm", "K", ("int8_gemm",)),
+            "limb_gemm": ("dd.limb_gemm", "K", ("limb_gemm",)),
+            "limb_extract": ("dd.limb_gemm", "K", ("limb_extract",)),
+            "cascade": ("dd.limb_gemm", "K", ("cascade_from_c",)),
+            "plmap": ("solver.step", "dk",
+                      ("plmap_add", "plmap_axpy", "plmap_residual"))}
 FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
           "int8_gemm": ("B", "M", "K", "N"),
           "limb_gemm": ("nw", "B", "m", "k", "n"),
-          "limb_extract": ("nw", "B", "d0", "d1", "side", "layout")}
+          "limb_extract": ("nw", "B", "d0", "d1", "side", "layout"),
+          "cascade": ("nw", "B", "m", "n", "form"),
+          "plmap": ("chain", "nw", "L", "n")}
 
 
-def _shape(kernel, args, kw):
+def _shape(kernel, wrapper, args, kw):
     """The recorded key of one call."""
     if kernel == "tri":
         l, b = args[:2]
@@ -71,8 +84,52 @@ def _shape(kernel, args, kw):
         words, _, side = args[:3]
         layout = kw.get("layout", args[3] if len(args) > 3 else "limb")
         return (len(words),) + tuple(words[0].shape) + (side, layout)
+    if kernel == "cascade":
+        C, eab, nw = args
+        return (nw,) + tuple(eab.shape) + ("c",)
+    if kernel == "plmap":
+        chain = wrapper.split("_", 1)[1]
+        words = args[2] if chain == "residual" else args[0]
+        if chain == "residual" and len(args) > 3 and args[3] is not None:
+            chain = "residual_corr"
+        L, n = words[0].shape[:2]
+        return (chain, len(words), L, n)
     a, b = args
     return tuple(a.shape) + (b.shape[2],)
+
+
+def _chain_args(key, rng, S):
+    """A chain's operands as the step passes them: [L, n, n] words, mu and
+    alpha as [L, 1, 1] broadcast scalars, a one-word mask."""
+    import numpy as np
+    import torch
+
+    chain, nw, L, n = key
+    x = S._words(rng, (L, n, n), nw)
+    d = S._words(rng, (L, n, n), nw)
+    if chain == "add":
+        return (x, d)
+    if chain == "axpy":
+        return (x, d, tuple(c.expand(L, 1, 1) for c in S._split(
+            np.asarray([[[0.9130357142857143]]]), 3)))
+    mu = tuple(c.expand(L, 1, 1) for c in
+               S._split(np.asarray([[[rng.random() * 1e3]]]), nw))
+    mask = torch.ones((L, n, n), device="cuda")
+    return (mu, mask, x) + ((d,) if chain == "residual_corr" else ())
+
+
+def _cascade_args(key, rng, K):
+    """int32 C [B, L m, L n] (or diagonal sums [B, nd, m, n]) and eab."""
+    import numpy as np
+    import torch
+
+    nw, B, m, n, form = key
+    L, nd = K.limb_params(nw)
+    shape = (B, L * m, L * n) if form == "c" else (B, nd, m, n)
+    src = rng.integers(-(1 << 24), 1 << 24, shape).astype(np.int32)
+    eab = rng.integers(-8, 9, (B, m, n)).astype(np.int32)
+    return (torch.from_numpy(src).to("cuda"), torch.from_numpy(eab).to("cuda"),
+            nw)
 
 
 def _call(kernel, key, rng, S, K):
@@ -103,6 +160,14 @@ def _call(kernel, key, rng, S, K):
         w = S._words(rng, (B, d0, d1), nw, True)
         L, _ = K.limb_params(nw)
         return lambda: K.limb_extract(w, L, side, layout)
+    if kernel == "cascade":
+        args = _cascade_args(key, rng, K)
+        fn = K.cascade_from_c if key[-1] == "c" else K.cascade_from_diags
+        return lambda: fn(*args)
+    if kernel == "plmap":
+        args = _chain_args(key, rng, S)
+        fn = getattr(K, "plmap_" + key[0].replace("_corr", ""))
+        return lambda: fn(*args)
     B, M, k, N = key
     a, b = (torch.from_numpy(rng.integers(-65, 66, s).astype(np.int8))
             .to("cuda") for s in ((B, M, k), (B, k, N)))
@@ -122,6 +187,19 @@ def _bound_ms(kernel, key, S, K):
         nw, B, m, k, n = key
         return S.bound(*S.cost_limb_gemm(nw, *K.limb_params(nw), B, m, k,
                                          n))[0]
+    if kernel == "cascade":
+        nw, B, m, n, form = key
+        return S.bound(*S.cost_cascade(nw, *K.limb_params(nw), B, m, n,
+                                       form == "c"))[0]
+    if kernel == "plmap":
+        import numpy as np
+
+        chain, nw, L, n = key
+        add, mul = S.exp_add_ops(nw), S.exp_mul_ops(nw)
+        ops = {"add": add, "axpy": 1 + mul + add, "residual": 2 * nw + add,
+               "residual_corr": 2 * nw + 2 * add}[chain]
+        args = _chain_args(key, np.random.default_rng(0), S)
+        return S.bound(*S.cost_plmap(args, nw, L * n * n, ops))[0]
     nw, B, d0, d1, side, _ = key
     return S.bound(*S.cost_extract(nw, K.limb_params(nw)[0], B, d0, d1,
                                    side))[0]
@@ -129,32 +207,32 @@ def _bound_ms(kernel, key, S, K):
 
 def record(kernel, run):
     """Calls of ``kernel`` per shape while ``run()`` runs: its caller's
-    kernels module is wrapped in one that counts the wrapper's shapes on
-    their way to it (recordings nest)."""
+    kernels module is wrapped in one that counts the wrappers' shapes on
+    their way to them (recordings nest)."""
     import importlib
 
-    modname, wrapper = RECORDED[kernel]
-    caller = importlib.import_module(f"clrs_tpu_torch.dd.{modname}")
-    inner = caller.K
+    modname, attr, wrappers = RECORDED[kernel]
+    caller = importlib.import_module(f"clrs_tpu_torch.{modname}")
+    inner = getattr(caller, attr)
     seen = collections.Counter()
 
     class Recording:
         def __getattr__(self, name):
             fn = getattr(inner, name)
-            if name != wrapper:
+            if name not in wrappers:
                 return fn
 
             def recorded(*a, **kw):
-                seen[_shape(kernel, a, kw)] += 1
+                seen[_shape(kernel, name, a, kw)] += 1
                 return fn(*a, **kw)
 
             return recorded
 
-    caller.K = Recording()
+    setattr(caller, attr, Recording())
     try:
         run()
     finally:
-        caller.K = inner
+        setattr(caller, attr, inner)
     return seen
 
 
@@ -215,8 +293,8 @@ def main():
             rows.append(dict(zip(FIELDS[k], key), calls_per_iteration=per_it,
                              ms=ms, ms_per_iteration=per_it * ms,
                              bound_ms=_bound_ms(k, key, S, K)))
-            form = ("transposed" if key[-1] else "forward") \
-                if k == "tri" else "all"
+            form = (("transposed" if key[-1] else "forward") if k == "tri"
+                    else key[0] if k == "plmap" else "all")
             sums[form] += per_it * ms
         print(json.dumps({
             "card": card, "checkout": str(Path(__file__).resolve().parent),
