@@ -20,12 +20,21 @@ Phases (one line each; any failure exits non-zero):
      version's time (time_ms), its bound on this card (bound) and a library
      call's time where one PyTorch call computes the same function;
   4. delsarte(3, 10) through clrs_tpu_torch.solvesdp (the card is its
-     default device): error code 0, Optimal, objective within 1e-9 of
-     13.15831434739031, every kernel of its path launched (counts set to 0
-     just before, read just after) and no plain version run;
+     default device; each iteration replays the step's CUDA graphs):
+     error code 0, Optimal, objective within 1e-9 of 13.15831434739031 in
+     28 iterations, every kernel of its path launched (counts set to 0
+     just before, read just after; a graph replay counts the launches its
+     capture recorded) and no plain version run;
   5. three IPM iterations of delsarte(3, 95) (P = 192, SOS blocks 96/95:
      blocked Cholesky and solves, the fused GEMM route), counted the same
-     way.
+     way;
+  6. the graphs against the eager step (make_step_body): delsarte(3,10)'s
+     first step word for word and its solve at sync_every=4 (phase 4's
+     checks); delsarte(3,95)'s mu, alpha_d and alpha_p of phase 5 equal
+     the eager step's to the last digit; then, at both problems, in turns
+     eager, graph, graph, eager, wall ms per iteration, capture seconds,
+     host calls and kernel launches per iteration and peak memory, and
+     host launch calls and device kernels of one profiled iteration.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -869,52 +878,59 @@ def check_counts(label, counts, required, n_it):
             fail(f"plain version {f.__name__} ran in the {label} solve")
 
 
-def solve_delsarte_3_10():
-    """Phase 4: the main path, counted. Returns the kernels' counts."""
+ITERATIONS_3_10 = 28
+STEP_KW = dict(gamma=0.9, beta_feasible=0.1, beta_infeasible=0.3,
+               dual_error_threshold=1e-12, primal_error_threshold=1e-12)
+
+
+def solve_delsarte_3_10(problem, sync_every=1):
+    """Phase 4: the main path, counted: solvesdp through the step's CUDA
+    graphs, chunks of ``sync_every`` iterations. Returns the kernels'
+    counts."""
     import torch
 
     import clrs_tpu_torch as ct
     from clrs_tpu_torch.dd import kernels as K
-    from clrs_tpu_torch.examples import delsarte_problem
 
-    problem = delsarte_problem(3, 10, Fraction(1, 2))
     iters = []
     K.reset_counts()
     status, dualsol, primalsol, t, code = ct.solvesdp(
-        problem, omega_p=100, omega_d=100,
-        dual_error_threshold=1e-12, primal_error_threshold=1e-12,
-        verbose=False, callback=lambda it, info: iters.append(it))
+        problem, omega_p=100, omega_d=100, sync_every=sync_every,
+        verbose=False, callback=lambda it, info: iters.append(it),
+        **{k: STEP_KW[k] for k in ("dual_error_threshold",
+                                   "primal_error_threshold")})
     torch.cuda.synchronize()
     counts = K.counts()
     obj = float(ct.objvalue(problem, primalsol))
-    n_it = len(iters)
-    print(f"delsarte(3,10): code {code} status {status!r} objective "
-          f"{obj!r} |err| {abs(obj - DELSARTE_3_10):.3e} iterations {n_it} "
-          f"solve {t:.3f} s = {t / max(n_it, 1):.4f} s/iteration", flush=True)
+    n_it = iters[-1] if iters else 0
+    label = f"delsarte(3,10) sync_every={sync_every}"
+    print(f"{label}: code {code} status {status!r} objective {obj!r} |err| "
+          f"{abs(obj - DELSARTE_3_10):.3e} iterations {n_it} in "
+          f"{len(iters)} chunks, solve {t:.3f} s = "
+          f"{t / max(n_it, 1):.4f} s/iteration", flush=True)
     if code != 0 or not ct.optimal(status):
-        fail(f"delsarte(3,10) ended with code {code}, status {status!r}")
+        fail(f"{label} ended with code {code}, status {status!r}")
     if not abs(obj - DELSARTE_3_10) < 1e-9:
-        fail(f"delsarte(3,10) objective {obj!r} is not within 1e-9 of "
+        fail(f"{label} objective {obj!r} is not within 1e-9 of "
              f"{DELSARTE_3_10!r}")
-    check_counts("delsarte(3,10)", counts, PATH_3_10, n_it)
+    if n_it != ITERATIONS_3_10:
+        fail(f"{label} took {n_it} iterations, not {ITERATIONS_3_10}")
+    check_counts(label, counts, PATH_3_10, n_it)
     return counts
 
 
-def delsarte_3_95():
+def delsarte_3_95(problem):
     """Phase 5: three iterations at Schur scale (P = 192: blocked
-    Cholesky and solves, the fused route for the Schur pairings), counted.
-    Returns the kernels' counts."""
+    Cholesky and solves, the fused route for the Schur pairings) through
+    solvesdp and the step's CUDA graphs, counted. Returns the kernels'
+    counts and the three iterations' infos."""
     import math
 
     import torch
 
     import clrs_tpu_torch as ct
     from clrs_tpu_torch.dd import kernels as K
-    from clrs_tpu_torch.examples import delsarte_problem
 
-    t0 = time.time()
-    problem = delsarte_problem(3, 95, Fraction(1, 2))
-    t_build = time.time() - t0
     rows = []
     marks = []
 
@@ -925,18 +941,17 @@ def delsarte_3_95():
 
     K.reset_counts()
     status, _, _, t, code = ct.solvesdp(
-        problem, omega_p=100, omega_d=100,
-        dual_error_threshold=1e-12, primal_error_threshold=1e-12,
-        maxiterations=3, verbose=False, callback=cb)
+        problem, omega_p=100, omega_d=100, maxiterations=3, verbose=False,
+        callback=cb, **{k: STEP_KW[k] for k in ("dual_error_threshold",
+                                                "primal_error_threshold")})
     torch.cuda.synchronize()
     counts = K.counts()
     later = [1e3 * (b - a) for a, b in zip(marks[:-1], marks[1:])]
-    print(f"delsarte(3,95): host build {t_build:.1f} s; code {code}; "
-          f"iterations {len(rows)}; loop {1e3 * t / max(len(rows), 1):.1f} "
-          f"ms/iteration (iterations 2-3: {[round(v, 1) for v in later]} ms)"
-          f"; mu {[r['mu'] for r in rows]}; alpha_d "
-          f"{[r['alpha_d'] for r in rows]}; alpha_p "
-          f"{[r['alpha_p'] for r in rows]}", flush=True)
+    print(f"delsarte(3,95): code {code}; iterations {len(rows)}; loop "
+          f"{1e3 * t / max(len(rows), 1):.1f} ms/iteration with the capture "
+          f"(iterations 2-3: {[round(v, 1) for v in later]} ms); mu "
+          f"{[r['mu'] for r in rows]}; alpha_d {[r['alpha_d'] for r in rows]}"
+          f"; alpha_p {[r['alpha_p'] for r in rows]}", flush=True)
     if len(rows) != 3 or code != 2:
         fail(f"delsarte(3,95) stopped after {len(rows)} iterations, code "
              f"{code}")
@@ -945,7 +960,168 @@ def delsarte_3_95():
                 and r["alpha_p"] > 0):
             fail(f"delsarte(3,95) iteration failed: {r}")
     check_counts("delsarte(3,95)", counts, PATH_3_95, len(rows))
-    return counts
+    return counts, rows
+
+
+def device_sdp(problem):
+    """The DeviceSDP that solvesdp builds for ``problem`` on the card."""
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.compile.preprocess import preprocess_sdp
+    from clrs_tpu_torch.model.checks import remove_empty_blocks
+    from clrs_tpu_torch.solver.step import DeviceSDP
+
+    sdp = ct.ClusteredLowRankSDP(problem)
+    remove_empty_blocks(sdp, verbose=False)
+    sdp, _ = preprocess_sdp(sdp, verbose=False)
+    return DeviceSDP(sdp, nw=5, device="cuda")
+
+
+def drive(ds, mode, n):
+    """1 + ``n`` iterations from omega 100 I by the eager step
+    (make_step_body) or through the graphs (make_run_chunk, chunks of
+    one), each ending in the one host read of its info that solvesdp
+    makes. The first iteration warms up (and, for the graphs, captures);
+    the next n are timed, synchronised. Peak device memory is
+    torch.cuda.max_memory_allocated over the run, and the same above what
+    the process held before it (the DeviceSDP's constants among that).
+    Returns (stats, the infos, a function that runs one more
+    iteration)."""
+    import torch
+
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.solver.ipm import _to_host
+    from clrs_tpu_torch.solver.step import (initial_state, make_assess,
+                                            make_run_chunk, make_step_body,
+                                            zero_info)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state = initial_state(ds, 100.0, 100.0)
+    if mode == "eager":
+        step = make_step_body(ds, **STEP_KW)
+        carry = [state, False]
+
+        def one():
+            carry[0], info = step(*carry)
+            h = _to_host(info)
+            carry[1] = h["pd_feas"]
+            return h
+    else:
+        run = make_run_chunk(ds, duality_gap_threshold=1e-15, **STEP_KW)
+        carry = [state, False, zero_info(_to_host(make_assess(ds)(state)),
+                                         ds.device)]
+
+        def one():
+            out = run(*carry, 1)
+            carry[:] = out[:3]
+            return _to_host(out[2], it_done=out[3], code=out[4])
+    rows = [one()]
+    torch.cuda.synchronize()
+    split = run.loop["split"] if mode == "graph" else None
+    calls0 = split.host_calls if split else 0
+    K.reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        rows.append(one())
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    plain = {f.__name__ for f in K._PLAIN}
+    stats = dict(mode=mode, wall_ms=wall,
+                 port_launches=sum(v for k, v in K.counts().items()
+                                   if k not in plain and "<" not in k) / n,
+                 peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                 peak_above_held_mib=(torch.cuda.max_memory_allocated()
+                                      - held) / 2 ** 20)
+    if split:
+        stats.update(capture_s=split.capture_seconds,
+                     warmup_s=split.warmup_seconds,
+                     host_calls=(split.host_calls - calls0) / n)
+    return stats, rows, one
+
+
+def profile_one(one):
+    """One more iteration under torch.profiler: (host launch calls: the
+    CUDA runtime and driver calls that launch a kernel or a graph or copy
+    memory; device kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    host = dev = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev += 1
+        elif e.name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                                "cudaMemcpy", "cudaMemset")):
+            host += 1
+    return host, dev
+
+
+GRAPH_PASSES = ("eager", "graph", "graph", "eager")
+
+
+def graph_vs_eager(card, problem_3_10, problem_3_95, rows_3_95):
+    """Phase 6: the graphs against the eager step. delsarte(3,10)'s first
+    step word for word (make_step against make_step_body) and its solve at
+    sync_every 4; delsarte(3,95)'s three mu, alpha_d and alpha_p of phase 5
+    against the eager step's; then, at both problems, in turns eager,
+    graph, graph, eager: wall ms per iteration over 5 iterations, capture
+    and instantiation seconds, host calls per iteration, the port's kernel
+    launches per iteration and peak device memory; and one profiled
+    iteration of each mode at delsarte(3,10): host launch calls and device
+    kernels."""
+    import torch
+
+    from clrs_tpu_torch.solver.step import (_tree_map, initial_state,
+                                            make_step, make_step_body)
+
+    ds10 = device_sdp(problem_3_10)
+    s0 = initial_state(ds10, 100.0, 100.0)
+    eager = make_step_body(ds10, **STEP_KW)(s0, False)
+    graph = make_step(ds10, **STEP_KW)(s0, False)
+    leaves = ([], [])
+    for out, acc in zip((eager, graph), leaves):
+        _tree_map(acc.append, out)
+    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
+    differ = sum(not torch.equal(a.view(as_int.get(a.dtype, a.dtype)),
+                                 b.view(as_int.get(b.dtype, b.dtype)))
+                 for a, b in zip(*leaves))
+    print(f"delsarte(3,10) first step, graph against eager: {differ} of "
+          f"{len(leaves[0])} word arrays and info entries differ", flush=True)
+    if differ or len(leaves[0]) != len(leaves[1]):
+        fail("the graph step differs from the eager step at delsarte(3,10)")
+
+    solve_delsarte_3_10(problem_3_10, sync_every=4)
+
+    ds95 = device_sdp(problem_3_95)
+    print(card, flush=True)
+    ones = {}
+    for label, ds in (("delsarte(3,10)", ds10), ("delsarte(3,95)", ds95)):
+        for mode in GRAPH_PASSES:
+            stats, rows, ones[label, mode] = drive(ds, mode, 5)
+            print(f"{label} {mode}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in stats.items()), flush=True)
+            if ds is ds95:
+                got = [tuple(r[k] for k in ("mu", "alpha_d", "alpha_p"))
+                       for r in rows[:3]]
+                want = [tuple(r[k] for k in ("mu", "alpha_d", "alpha_p"))
+                        for r in rows_3_95]
+                if got != want:
+                    fail(f"delsarte(3,95) {mode}: mu, alpha_d, alpha_p "
+                         f"{got} differ from phase 5's {want}")
+    print("delsarte(3,95): the eager and graph runs' mu, alpha_d and "
+          "alpha_p equal phase 5's to the last digit", flush=True)
+    for mode in ("eager", "graph"):
+        host, dev = profile_one(ones["delsarte(3,10)", mode])
+        print(f"delsarte(3,10) {mode}, one profiled iteration: host launch "
+              f"calls {host}, device kernels "
+              f"{dev if dev else 'not measured (no device records)'}",
+              flush=True)
 
 
 def main():
@@ -970,8 +1146,16 @@ def main():
     recs = compare_kernels()
     torch.cuda.synchronize()
 
-    runs = {"delsarte(3,10)": solve_delsarte_3_10(),
-            "delsarte(3,95)": delsarte_3_95()}
+    from clrs_tpu_torch.examples import delsarte_problem
+
+    problem_3_10 = delsarte_problem(3, 10, Fraction(1, 2))
+    counts_3_10 = solve_delsarte_3_10(problem_3_10)
+    t0 = time.time()
+    problem_3_95 = delsarte_problem(3, 95, Fraction(1, 2))
+    print(f"delsarte(3,95): host build {time.time() - t0:.1f} s", flush=True)
+    counts_3_95, rows_3_95 = delsarte_3_95(problem_3_95)
+    runs = {"delsarte(3,10)": counts_3_10, "delsarte(3,95)": counts_3_95}
+    graph_vs_eager(card, problem_3_10, problem_3_95, rows_3_95)
     for name, r in recs.items():
         r["launches_by_run"] = {k: c[name] for k, c in runs.items()}
         r["launches"] = sum(r["launches_by_run"].values())

@@ -76,6 +76,21 @@ def counts():
     return out
 
 
+def add_counts(delta, times=1):
+    """Add ``times`` x ``delta`` ({name: n}, named as :func:`counts` names
+    them) to the counters: a replayed CUDA graph launches again the kernels
+    that its capture counted (:mod:`clrs_tpu_torch.solver.graph`)."""
+    forms = {name: t for t, name in TRI_FORMS.items()}
+    fns = {f.__name__: f for f in _COUNTED + _PLAIN}
+    for name, n in delta.items():
+        if name in forms:
+            tri_solve_batched.launches_by_form[forms[name]] += times * n
+        elif name in _COUNTED_NAMES:
+            fns[name].launches += times * n
+        else:
+            fns[name].calls += times * n
+
+
 def _counted_plain(fn):
     @functools.wraps(fn)
     def wrapper(*args, **kw):
@@ -850,4 +865,5 @@ def tri_solve_batched(l, b, trans=False):
 _COUNTED = (limb_extract, limb_gemm, int8_gemm, cascade_from_c,
             cascade_from_diags, chol_batched, tri_solve_batched, plmap_add,
             plmap_axpy, plmap_residual)
+_COUNTED_NAMES = frozenset(f.__name__ for f in _COUNTED)
 reset_counts()

@@ -1,5 +1,7 @@
 """Host-side IPM loop of the port (``clrs_tpu/solver/ipm.py`` on the f32
-substrate, one device step per host iteration).
+substrate): chunks of ``sync_every`` iterations through
+:func:`.step.make_run_chunk`, whose steps replay captured CUDA graphs on
+the card and run eagerly on the CPU.
 
 Kwargs and defaults follow the reference (solver.jl:100-128), as do
 termination (:921-950), error codes 0-4, the iteration table,
@@ -27,7 +29,8 @@ from ..state import state_to_numpy
 from ..utils.hp import DDScalar
 from .status import (DualFeasible, DualSolution, Feasible, NearOptimal,
                      NotConverged, Optimal, PrimalFeasible, PrimalSolution)
-from .step import DeviceSDP, _w, initial_state, make_assess, make_step_body
+from .step import (DeviceSDP, _w, initial_state, make_assess,
+                   make_run_chunk, zero_info)
 
 __all__ = ["solvesdp", "SolverFailure", "SaveSettings", "word_count"]
 
@@ -65,12 +68,15 @@ def word_count(prec):
     return min(8, max(5, -(-int(prec) // 24)))
 
 
-def _info_to_host(info):
-    """One device->host transfer for all scalar info entries."""
-    keys = list(info)
-    vals = torch.stack([info[k].to(torch.float64) for k in keys]).cpu()
-    out = {k: float(v) for k, v in zip(keys, vals)}
-    for k in ("ok", "ok_X", "ok_S", "ok_Q", "pd_feas"):
+def _to_host(info, **extra):
+    """One device->host transfer for all scalar info entries (and any
+    ``extra`` device scalars: a chunk's it_done, code and done)."""
+    vals = dict(info, **extra)
+    keys = list(vals)
+    host = torch.stack([torch.as_tensor(vals[k]).to(torch.float64)
+                        for k in keys]).cpu()
+    out = {k: float(v) for k, v in zip(keys, host)}
+    for k in ("ok", "ok_X", "ok_S", "ok_Q", "pd_feas", "done"):
         if k in out:
             out[k] = bool(out[k])
     return out
@@ -89,7 +95,7 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
              safe_step=True, correctoronly=False,
              save_settings: Optional[SaveSettings] = None,
              preprocess=True, substrate="f32", mesh=None,
-             callback=None):
+             callback=None, sync_every=None):
     """Solve on ``device`` (the card by default; "cpu" runs the kernels'
     plain versions); returns (status, dualsol, primalsol, solve_time,
     errorcode). Without a card, the default raises: nothing falls back to
@@ -97,8 +103,18 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
 
     Runs the f32-expansion substrate with nw words (see :func:`word_count`).
     ``substrate="f64"`` and ``mesh=`` are later slices of the port and
-    raise NotImplementedError. ``callback(it, info)``, if given, is called
-    after every committed iteration with the host copy of its info."""
+    raise NotImplementedError.
+
+    ``sync_every`` (default 1) iterations run as one chunk of
+    :func:`.step.make_run_chunk`: on the card each iteration replays the
+    step's captured CUDA graphs around the eager eigensolver, and the host
+    reads the chunk's info, committed count and code once at its end; the
+    iteration log prints one row per chunk. On the CPU the same loop runs
+    eagerly. A failed capture raises; nothing carries on eagerly on the
+    card. ``callback(it, info)``, if given, is called once per chunk that
+    committed an iteration, with the number of iterations committed so far
+    and the host copy of the last committed iteration's info (with
+    ``sync_every=1``: after every committed iteration)."""
     if substrate != "f32":
         raise NotImplementedError("only substrate='f32' is ported")
     if mesh is not None:
@@ -118,19 +134,29 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     else:
         post = None
 
+    if sync_every is None:
+        sync_every = 1
+    sync_every = int(sync_every)
+    if sync_every < 1:
+        raise ValueError(f"sync_every must be at least 1, got {sync_every}")
     ds = DeviceSDP(sdp, nw=word_count(prec), device=dev)
-    step = make_step_body(ds, gamma=gamma, beta_feasible=beta_feasible,
-                          beta_infeasible=beta_infeasible,
-                          dual_error_threshold=dual_error_threshold,
-                          primal_error_threshold=primal_error_threshold,
-                          safe_step=safe_step, correctoronly=correctoronly)
+    run_chunk = make_run_chunk(
+        ds, duality_gap_threshold=duality_gap_threshold,
+        need_dual_feasible=need_dual_feasible,
+        need_primal_feasible=need_primal_feasible,
+        step_length_threshold=step_length_threshold,
+        max_complementary_gap=max_complementary_gap, gamma=gamma,
+        beta_feasible=beta_feasible, beta_infeasible=beta_infeasible,
+        dual_error_threshold=dual_error_threshold,
+        primal_error_threshold=primal_error_threshold,
+        safe_step=safe_step, correctoronly=correctoronly)
     assess = make_assess(ds)
 
     state = initial_state(ds, float(omega_p), float(omega_d))
     if dualsol is not None and primalsol is not None:
         state = _warm_start(ds, sdp, state, dualsol, primalsol)
 
-    info0 = _info_to_host(assess(state))
+    info0 = _to_host(assess(state))
     dual_error = info0["dual_error"]
     primal_error = info0["primal_error"]
     dual_gap = info0["dual_gap"]
@@ -180,63 +206,74 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
             error_code = 3
             break
 
-        new_state, info = step(state, pd_feas)
-        info = _info_to_host(info)
-        if not info["ok"] or not np.isfinite(info["mu"]):
+        if it == 1:
+            feas_dev, info_dev = pd_feas, zero_info(info0, dev)
+        n = min(sync_every, maxiterations - it + 1)
+        state, feas_dev, info_dev, itd, code, done = run_chunk(
+            state, feas_dev, info_dev, n)
+        info = _to_host(info_dev, it_done=itd, code=code)
+        itd, code = int(info.pop("it_done")), int(info.pop("code"))
+        if itd:
+            it += itd
+            mu = info["mu"]
+            dual_error = info["dual_error"]
+            primal_error = info["primal_error"]
+            pd_feas = info["pd_feas"]
+            d_obj, p_obj = info["d_obj"], info["p_obj"]
+            dual_gap = info["dual_gap"]
+            if callback is not None:
+                callback(it - 1, info)
             if verbose:
-                which = [nm for nm, key in (("X", "ok_X"), ("S", "ok_S"),
-                                            ("Q", "ok_Q")) if not info[key]]
-                print(f"A Cholesky decomposition failed "
-                      f"({'/'.join(which) or 'non-finite values'}); "
-                      "returning the current solution. The problem may "
-                      "need preprocessing or more precision.")
+                print(f"{it - 1:5d} {_time.time()-t0:8.1f} {mu:11.3e} "
+                      f"{d_obj:11.3e} {p_obj:11.3e} {dual_gap:10.2e} "
+                      f"{info['P_error']:10.2e} {info['p_error']:10.2e} "
+                      f"{primal_error:10.2e} {info['alpha_d']:10.2e} "
+                      f"{info['alpha_p']:10.2e} {info['beta_c']:10.2e}")
+        if code == 1:
+            if verbose:
+                print("A Cholesky decomposition failed (or non-finite "
+                      "values appeared); returning the current solution. "
+                      "The problem may need preprocessing or more "
+                      "precision.")
             error_code = 1
             break
-        if min(info["alpha_d"], info["alpha_p"]) < step_length_threshold:
+        if code == 4:
             if verbose:
-                print(f"The step length ({min(info['alpha_d'], info['alpha_p']):.2e}) "
-                      "was too short; possible precision issues or infeasibility.")
+                print("The step length was too short; possible precision "
+                      "issues or infeasibility.")
             error_code = 4
             break
+        if code == 3:
+            if verbose:
+                print(f"The maximum complementary gap has been exceeded "
+                      f"(mu = {mu}).")
+            error_code = 3
+            break
 
-        state = new_state
-        mu = info["mu"]
-        dual_error = info["dual_error"]
-        primal_error = info["primal_error"]
-        pd_feas = info["pd_feas"]
-        d_obj, p_obj = info["d_obj"], info["p_obj"]
-        dual_gap = info["dual_gap"]
-        if callback is not None:
-            callback(it, info)
-
-        if verbose:
-            print(f"{it:5d} {_time.time()-t0:8.1f} {mu:11.3e} {d_obj:11.3e} "
-                  f"{p_obj:11.3e} {dual_gap:10.2e} {info['P_error']:10.2e} "
-                  f"{info['p_error']:10.2e} {primal_error:10.2e} "
-                  f"{info['alpha_d']:10.2e} {info['alpha_p']:10.2e} "
-                  f"{info['beta_c']:10.2e}")
-
-        if save_settings is not None:
+        if save_settings is not None and itd:
+            done_it = it - 1
             save_now = False
             ss = save_settings
             if ss.callback is not None:
-                save_now = ss.callback(it, _time.time() - t0,
-                                       it - last_save_iter,
+                save_now = ss.callback(done_it, _time.time() - t0,
+                                       done_it - last_save_iter,
                                        _time.time() - save_t0)
                 if save_now:
-                    last_save_iter = it
+                    last_save_iter = done_it
                     save_t0 = _time.time()
             else:
-                if ss.iter_interval and it - last_save_iter >= ss.iter_interval:
+                if (ss.iter_interval
+                        and done_it - last_save_iter >= ss.iter_interval):
                     save_now = True
-                    last_save_iter = it
+                    last_save_iter = done_it
                 if ss.time_interval and _time.time() - save_t0 >= ss.time_interval:
                     save_now = True
                     save_t0 = _time.time()
             if save_now:
                 save_count += 1
                 _save(ss, save_count, _extract(ds, sdp, state, post))
-        it += 1
+        if itd == 0:
+            break
 
     solve_time = _time.time() - t0
     dualsol_out, primalsol_out = _extract(ds, sdp, state, post)

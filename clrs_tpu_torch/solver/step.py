@@ -13,16 +13,20 @@ triangular solves go through the kernel wrappers of
 lowest eigenvalue from float64 ``torch.linalg.eigvalsh`` with
 ``eig_safety`` (the JAX package's off-TPU route; the card's f64 is IEEE).
 
-PyTorch runs eagerly: a step is a Python function over device tensors
-(no jit). The step takes the route the JAX package takes on the TPU: every
-GEMM routes as there (:func:`clrs_tpu_torch.dd.limb_gemm.gemm_route`), and
-the three per-class elementwise chains of ``pl_map`` (the residual R, the
+A step is a Python function over device tensors, split at its
+eigensolver into a head and a tail (:func:`make_step_parts`);
+:func:`make_step_body` runs them eagerly, and on the card :func:`make_step`
+and :func:`make_run_chunk` replay them from CUDA graphs
+(:mod:`.graph`), the counterpart of the JAX package's ``jax.jit`` and
+``lax.while_loop``. The step takes the route the JAX package takes on the
+TPU: every GEMM routes as there
+(:func:`clrs_tpu_torch.dd.limb_gemm.gemm_route`), and the three
+per-class elementwise chains of ``pl_map`` (the residual R, the
 corrector sum X + dX and the state update X + alpha dX) run as one kernel
 each (``plmap_*`` in :mod:`clrs_tpu_torch.dd.kernels`); ``plmap=False``
 gives the JAX ``_USE_PLMAP=False`` form of plain expansion ops instead. The
 scalar-pack parts stay plain ops, as in the JAX package. Not ported here:
-the row-sharded big-cluster branches and the on-device multi-iteration
-loop (``make_run_chunk``).
+the row-sharded big-cluster branches.
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ from ..dd.ops import exp_neg as dd_neg
 from ..dd.ops import exp_sub as dd_sub
 from ..device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["DeviceSDP", "make_step_body", "make_assess", "initial_state",
-           "make_run_chunk"]
+__all__ = ["DeviceSDP", "make_step_parts", "make_step_body", "make_step",
+           "make_run_chunk", "make_assess", "initial_state", "zero_info",
+           "eig_lowest"]
 
 F32 = torch.float32
 F64 = torch.float64
@@ -734,23 +739,56 @@ def _errors(ds, Pres, Pres_s, pres, dres):
     return dual_error, primal_error, P_error, p_error
 
 
-def _eig_lo_bound(W2, eig_safety):
-    """Lower eigenvalue bounds of symmetrized batches from float64
-    eigvalsh, less eig_safety * (1 + |lambda_min|) (the JAX off-TPU route,
-    clrs_tpu/solver/step.py:1146-1166)."""
+def _eig_input(W2):
+    """The eigensolver's input from L^-1 dM L^-T words [2L, n, n]: the f64
+    sum of the words, symmetrized, with every member that holds a NaN or
+    an Inf (a failed Cholesky leaves NaNs past its pivot) set to zero.
+    Returns (matrices, bad [2L]). cuSOLVER reports such a member through
+    its ``info``, on which PyTorch raises; LAPACK (the JAX package's
+    eigvalsh) returns NaN for it, which :func:`_step_lengths` puts back."""
     A64 = _f64sum(W2)
     A64 = 0.5 * (A64 + A64.transpose(-1, -2))
-    lo = torch.linalg.eigvalsh(A64)[:, 0]
-    return lo - eig_safety * (1.0 + lo.abs())
+    bad = ~torch.isfinite(A64).all(dim=-1).all(dim=-1)
+    return torch.where(bad[:, None, None], 0.0, A64), bad
 
 
-def _step_lengths(ds, state, dX, dXs, dY, dYs, cholX, cholY, gamma,
-                  eig_safety):
-    """(alpha_d, alpha_p): longest steps keeping X + a dX and Y + a dY PSD,
-    from min eig of L^-1 dM L^-T with the factors of this iteration
-    (solver.jl:1618-1693); the X and Y sides run as one [2L] batch."""
-    inf = torch.tensor(float("inf"), dtype=F64, device=ds.device)
+def eig_lowest(mats):
+    """Lowest eigenvalue of each member of each matrix batch, from float64
+    ``torch.linalg.eigvalsh`` (the JAX package's off-TPU route,
+    clrs_tpu/solver/step.py:1146-1166). On the card PyTorch reads
+    cuSOLVER's ``info`` on the host, so this runs eagerly between the two
+    captured segments of a step."""
+    return [torch.linalg.eigvalsh(A)[:, 0] for A in mats]
+
+
+def _step_mats(ds, dX, dY, cholX, cholY):
+    """The head half of the step lengths (solver.jl:1618-1693): per
+    non-scalar size class, the eigensolver's input for the X and Y sides
+    as one [2L] batch, L^-1 dM L^-T with the factors of this iteration.
+    Returns (matrices, bad masks), class by class."""
+    mats, bads = [], []
+    for j, cl in enumerate(ds.clusters):
+        for ki, k in enumerate(cl.classes):
+            if k.n == 1:
+                continue
+            L2 = _cat(cholX[j][ki], cholY[j][ki])
+            W = dl.b_solve_tril(L2, _cat(dX[j][ki], dY[j][ki]))
+            W2 = dl.b_solve_tril(L2, dl.dd_transpose(W))
+            A, bad = _eig_input(W2)
+            mats.append(A)
+            bads.append(bad)
+    return mats, bads
+
+
+def _step_lengths(ds, state, dX, dXs, dY, dYs, lows, bads, gamma,
+                  eig_safety, inf, one):
+    """(alpha_d, alpha_p): longest steps keeping X + a dX and Y + a dY PSD.
+    ``lows``/``bads`` are :func:`eig_lowest` and the masks of
+    :func:`_step_mats`, class by class; the lower bound is the lowest
+    eigenvalue less eig_safety * (1 + |lambda_min|), NaN for a member that
+    was not finite."""
     min_d, min_p = inf, inf
+    lows, bads = iter(lows), iter(bads)
 
     def scalar_min(cur, Mb, dMb, mask):
         e = (_f64sum(tuple(c[:, 0, 0] for c in dMb))
@@ -760,16 +798,14 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, cholX, cholY, gamma,
 
     for j, cl in enumerate(ds.clusters):
         for ki, k in enumerate(cl.classes):
-            Xb, Yb = state["X"][j][ki], state["Y"][j][ki]
-            dXb, dYb = dX[j][ki], dY[j][ki]
             if k.n == 1:
-                min_d = scalar_min(min_d, Xb, dXb, k.maskdiag[:, 0])
-                min_p = scalar_min(min_p, Yb, dYb, k.maskdiag[:, 0])
+                Xb, Yb = state["X"][j][ki], state["Y"][j][ki]
+                min_d = scalar_min(min_d, Xb, dX[j][ki], k.maskdiag[:, 0])
+                min_p = scalar_min(min_p, Yb, dY[j][ki], k.maskdiag[:, 0])
                 continue
-            L2 = _cat(cholX[j][ki], cholY[j][ki])
-            W = dl.b_solve_tril(L2, _cat(dXb, dYb))
-            W2 = dl.b_solve_tril(L2, dl.dd_transpose(W))
-            lo = _eig_lo_bound(W2, eig_safety)
+            lam = next(lows)
+            lo = lam - eig_safety * (1.0 + lam.abs())
+            lo = torch.where(next(bads), float("nan"), lo)
             min_d = torch.minimum(min_d, lo[:k.L].min())
             min_p = torch.minimum(min_p, lo[k.L:].min())
         if cl.s_nb:
@@ -777,7 +813,6 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, cholX, cholY, gamma,
             min_d = torch.minimum(min_d, torch.where(cl.smask > 0, e, inf).min())
             e = _f64sum(dYs[j]) / _f64sum(state["Ys"][j])
             min_p = torch.minimum(min_p, torch.where(cl.smask > 0, e, inf).min())
-    one = torch.ones((), dtype=F64, device=ds.device)
     a_d = torch.where(min_d > -gamma, one, -gamma / min_d)
     a_p = torch.where(min_p > -gamma, one, -gamma / min_p)
     return a_d, a_p
@@ -829,13 +864,18 @@ def make_assess(ds: DeviceSDP):
     return assess
 
 
-def make_step_body(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
-                   beta_infeasible: float, dual_error_threshold: float,
-                   primal_error_threshold: float, safe_step: bool = True,
-                   correctoronly: bool = False, eig_safety: float = 1e-12,
-                   plmap: bool = True):
-    """Build the one-iteration function ``step(state, pd_feas_prev) ->
-    (new_state, info)``; info values are device tensors. ``plmap=False``
+def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
+                    beta_infeasible: float, dual_error_threshold: float,
+                    primal_error_threshold: float, safe_step: bool = True,
+                    correctoronly: bool = False, eig_safety: float = 1e-12,
+                    plmap: bool = True):
+    """One iteration split at its eigensolver: ``head(state, pd_feas_prev)
+    -> (mid, mats)`` runs up to the step-length matrices, :func:`eig_lowest`
+    (mats) gives their lowest eigenvalues, and ``tail(state, mid, lows) ->
+    (new_state, info)`` runs the rest; info values are device tensors.
+    ``pd_feas_prev`` is a bool tensor on the device. Neither half reads a
+    device value on the host or copies host data to the device, so each
+    can be captured in a CUDA graph (:func:`make_step`). ``plmap=False``
     runs the three elementwise chains as plain expansion ops instead of
     the chain kernels."""
     K = float(ds.total_size)
@@ -843,9 +883,15 @@ def make_step_body(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
     dev = ds.device
 
     def f64(v):
-        return torch.tensor(float(v), dtype=F64, device=dev)
+        return torch.full((), float(v), dtype=F64, device=dev)
 
-    def step(state, pd_feas_prev):
+    # constants, made once so that a step copies nothing to the device
+    Kt = torch.full((), K, dtype=F32, device=dev)
+    beta_f, beta_i = f64(beta_feasible), f64(beta_infeasible)
+    bw = _scalar_split(beta_i, nw)
+    inf, one = f64(float("inf")), f64(1.0)
+
+    def head(state, pd_feas_prev):
         X, Y, Xs, Ys = state["X"], state["Y"], state["Xs"], state["Ys"]
         ok = torch.ones((), dtype=torch.bool, device=dev)
         ok_X = ok.clone()
@@ -853,16 +899,14 @@ def make_step_body(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         if any(cl.row_shard for cl in ds.clusters):
             raise NotImplementedError("row-sharded clusters are not ported")
 
-        # mu and mu_p
-        Kt = torch.full((), K, dtype=F32, device=dev)
+        # mu and mu_p (the words of beta_infeasible, or 0 after a feasible
+        # step: a select, as clrs_tpu/solver/step.py:1321)
         mu = dd_div(_dot_state(ds, state, state), _scalar(Kt, nw))
         if correctoronly:
             mu_p = mu
         else:
-            bw = _scalar_split(f64(beta_infeasible), nw)
-            if bool(pd_feas_prev):
-                bw = tuple(torch.zeros_like(w) for w in bw)
-            mu_p = dd_mul(mu, bw)
+            mu_p = dd_mul(mu, tuple(torch.where(pd_feas_prev, 0.0, w)
+                                    for w in bw))
 
         # chol(X)+chol(Y) per class as one [2L] batch; X^-1
         Xinv, Xinv_s, cholX, cholY = [], [], [], []
@@ -1042,42 +1086,281 @@ def make_step_body(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         beta = torch.where(r_val < 1.0, r_val ** 2, r_val)
         beta_c = torch.where(
             pd_feas_now,
-            torch.clamp(torch.maximum(f64(beta_feasible), beta), max=1.0),
-            torch.maximum(f64(beta_infeasible), beta))
+            torch.clamp(torch.maximum(beta_f, beta), max=1.0),
+            torch.maximum(beta_i, beta))
         mu_c = dd_mul(mu, _scalar_split(beta_c, nw))
 
         # corrector direction
         Rc, Rc_s = _residual_R(mu_c, corr=(dX, dY, dXs, dYs))
         dx, dy, dX, dY, dXs, dYs = search_direction(Rc, Rc_s)
 
-        # step lengths
-        alpha_d, alpha_p = _step_lengths(ds, state, dX, dXs, dY, dYs,
-                                         cholX, cholY, gamma, eig_safety)
+        # the step-length matrices (the eigensolver's input)
+        mats, bads = _step_mats(ds, dX, dY, cholX, cholY)
+        mid = {
+            "dx": dx, "dy": dy, "dX": dX, "dY": dY, "dXs": dXs, "dYs": dYs,
+            "bads": bads, "mu": _f64sum(mu), "dual_error": dual_error,
+            "primal_error": primal_error, "P_error": P_error,
+            "p_error": p_error, "pd_feas": pd_feas_now, "beta_c": beta_c,
+            "ok": ok, "ok_X": ok_X, "ok_S": ok_S, "ok_Q": okq,
+        }
+        return mid, mats
+
+    def tail(state, mid, lows):
+        alpha_d, alpha_p = _step_lengths(
+            ds, state, mid["dX"], mid["dXs"], mid["dY"], mid["dYs"], lows,
+            mid["bads"], gamma, eig_safety, inf, one)
+        pd_feas_now = mid["pd_feas"]
         if safe_step:
             a = torch.minimum(alpha_p, alpha_d)
             alpha_p = torch.where(pd_feas_now, a, alpha_p)
             alpha_d = torch.where(pd_feas_now, a, alpha_d)
 
-        new_state = _axpy_state(state, dx, dy, dX, dY, dXs, dYs,
+        new_state = _axpy_state(state, mid["dx"], mid["dy"], mid["dX"],
+                                mid["dY"], mid["dXs"], mid["dYs"],
                                 alpha_d, alpha_p, plmap=plmap)
         d_obj, p_obj, gap = _objectives(ds, new_state)
         info = {
-            "mu": _f64sum(mu), "dual_error": dual_error,
-            "primal_error": primal_error, "P_error": P_error,
-            "p_error": p_error, "pd_feas": pd_feas_now,
-            "alpha_d": alpha_d, "alpha_p": alpha_p, "beta_c": beta_c,
+            "mu": mid["mu"], "dual_error": mid["dual_error"],
+            "primal_error": mid["primal_error"], "P_error": mid["P_error"],
+            "p_error": mid["p_error"], "pd_feas": pd_feas_now,
+            "alpha_d": alpha_d, "alpha_p": alpha_p, "beta_c": mid["beta_c"],
             "d_obj": _f64sum(d_obj), "p_obj": _f64sum(p_obj),
-            "dual_gap": gap, "ok": ok, "ok_X": ok_X, "ok_S": ok_S,
-            "ok_Q": okq,
+            "dual_gap": gap, "ok": mid["ok"], "ok_X": mid["ok_X"],
+            "ok_S": mid["ok_S"], "ok_Q": mid["ok_Q"],
         }
         return new_state, info
+
+    return head, tail
+
+
+def _as_flag(v, dev):
+    """A bool (host or device) -> a 0-dim bool tensor on ``dev``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.bool)
+    return torch.full((), bool(v), dtype=torch.bool, device=dev)
+
+
+def make_step_body(ds: DeviceSDP, **kw):
+    """The eager one-iteration function ``step(state, pd_feas_prev) ->
+    (new_state, info)``: :func:`make_step_parts` run in turn, on any
+    device. ``pd_feas_prev`` may be a host bool or a device bool tensor;
+    info values are device tensors."""
+    head, tail = make_step_parts(ds, **kw)
+
+    def step(state, pd_feas_prev):
+        mid, mats = head(state, _as_flag(pd_feas_prev, ds.device))
+        return tail(state, mid, eig_lowest(mats))
 
     return step
 
 
-def make_run_chunk(ds: DeviceSDP, **kw):
-    """The on-device multi-iteration loop of the JAX package (a CUDA graph
-    of the step body here) is not ported yet: one step per host
-    iteration."""
-    raise NotImplementedError("make_run_chunk is not ported; use one step "
-                              "per host iteration (make_step_body)")
+# False runs make_step and make_run_chunk eagerly on the card too (the
+# tests compare the two there); the solver never changes it
+_CAPTURE = True
+
+INFO_KEYS = ("mu", "dual_error", "primal_error", "P_error", "p_error",
+             "pd_feas", "alpha_d", "alpha_p", "beta_c", "d_obj", "p_obj",
+             "dual_gap", "ok", "ok_X", "ok_S", "ok_Q")
+_FLAGS = ("pd_feas", "ok", "ok_X", "ok_S", "ok_Q")
+
+
+def zero_info(assess_info=None, device=DEFAULT_DEVICE):
+    """Initial info carry of :func:`make_run_chunk`, with the step's keys
+    and dtypes (clrs_tpu/solver/step.py:55-72): errors, objectives and mu
+    from an assess() result where given, so a chunk whose first step fails
+    still reports them."""
+    dev = resolve_device(device)
+    seed = {"alpha_d": 1.0, "alpha_p": 1.0, "beta_c": 0.0, "pd_feas": False,
+            "ok": True, "ok_X": True, "ok_S": True, "ok_Q": True}
+    out = {}
+    for k in INFO_KEYS:
+        v = seed.get(k, 0.0)
+        if k not in seed and assess_info and k in assess_info:
+            v = float(assess_info[k])
+        out[k] = torch.full((), v, device=dev,
+                            dtype=torch.bool if k in _FLAGS else F64)
+    return out
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of a state or info tree (dicts, lists and
+    tuples), leaf by leaf across trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _assign(buf, v):
+    """Copy ``v`` (a tensor or a host number) into the tensor ``buf``."""
+    if v is buf:
+        return
+    if isinstance(v, torch.Tensor):
+        buf.copy_(v)
+    else:
+        buf.fill_(v)
+
+
+def make_step(ds: DeviceSDP, **kw):
+    """The counterpart of the JAX package's ``jax.jit(make_step_body)``:
+    ``step(state, pd_feas_prev) -> (new_state, info)``.
+
+    On the CPU this is :func:`make_step_body`. On the card the head and the
+    tail of :func:`make_step_parts` are captured in CUDA graphs at the first
+    call (:class:`.graph.GraphSplit`), with the eigensolver eager between
+    their replays; the words equal the eager step's bit for bit. Inputs are
+    copied into static buffers; the returned state and info ARE the tail
+    graph's static outputs, overwritten by the next call: clone what must
+    outlive it. Passing them back as the next call's inputs is fine."""
+    if ds.device.type != "cuda" or not _CAPTURE:
+        return make_step_body(ds, **kw)
+    from .graph import GraphSplit
+
+    head, tail = make_step_parts(ds, **kw)
+    bufs = {}
+
+    def step(state, pd_feas_prev):
+        if not bufs:
+            bufs["state"] = _tree_map(torch.clone, state)
+            bufs["pd"] = _as_flag(pd_feas_prev, ds.device).clone()
+            S, pd = bufs["state"], bufs["pd"]
+            bufs["split"] = GraphSplit(
+                lambda: head(S, pd), eig_lowest,
+                lambda mid, lows: tail(S, mid, lows))
+        _tree_map(_assign, bufs["state"], state)
+        _assign(bufs["pd"], pd_feas_prev)
+        split = bufs["split"]
+        split.run_head()
+        split.run_eig()
+        return split.run_tail()
+
+    step.buffers = bufs
+    return step
+
+
+def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
+                   need_dual_feasible: bool = False,
+                   need_primal_feasible: bool = False,
+                   step_length_threshold: float = 1e-7,
+                   max_complementary_gap: float = 1e100, **step_kw):
+    """Up to ``nmax`` IPM iterations with commit and rollback and the
+    error codes 1/3/4 decided on the device (clrs_tpu/solver/step.py:
+    1624-1694); codes 0/2 stay with the host.
+
+    Returns ``run(state, pd_feas, info, nmax) -> (state, pd_feas, info,
+    it_done, code, done)``: ``it_done`` counts committed iterations,
+    ``code`` is 0/1/3/4, ``done`` says the chunk stopped for a reason other
+    than reaching ``nmax``; all are device tensors, and the host reads them
+    (with the info) in one transfer. A step is committed only where it is
+    ok, mu is finite and the step lengths reach ``step_length_threshold``;
+    otherwise state, info and pd_feas keep their last committed values.
+
+    On the card each iteration replays the captured head and tail of the
+    step (:class:`.graph.GraphSplit`, captured at the first call) around
+    the eager eigensolver; the commit, the termination tests and the code
+    ladder are device selects inside the tail graph. A graph cannot end a
+    loop, so after ``done`` an iteration commits nothing; the host stops
+    the chunk early instead where it can see ``done`` without a wait of
+    its own: a copy of the flag to pinned memory follows each tail replay,
+    and the host reads it after the next eigensolver call, which waits on
+    the device anyway (at most one head and one eigensolver call past
+    ``done``). On the CPU the same loop runs eagerly and stops at once.
+
+    The returned state, pd_feas and info are the loop's own buffers,
+    overwritten by the next call: clone what must outlive it. Passing them
+    back as the next call's inputs is fine."""
+    head, tail = make_step_parts(ds, **step_kw)
+    dual_error_threshold = step_kw.get("dual_error_threshold", 1e-30)
+    primal_error_threshold = step_kw.get("primal_error_threshold", 1e-30)
+    correctoronly = step_kw.get("correctoronly", False)
+    dev = ds.device
+    graphs = dev.type == "cuda" and _CAPTURE
+
+    def tail_chunk(carry, mid, lows):
+        state, pd_feas, info_prev, it, code, done = carry
+        new_state, info = tail(state, mid, lows)
+        okstep = info["ok"] & torch.isfinite(info["mu"])
+        alpha_ok = torch.minimum(info["alpha_d"], info["alpha_p"]) \
+            >= step_length_threshold
+        commit = okstep & alpha_ok & ~done
+        state2 = _tree_map(lambda a, b: torch.where(commit, a, b),
+                           new_state, state)
+        info2 = {k: torch.where(commit, info[k], info_prev[k])
+                 for k in info_prev}
+        pd_feas2 = torch.where(commit, info["pd_feas"], pd_feas)
+        it2 = it + commit.to(torch.int32)
+        # termination with the updated errors (the host checks these at the
+        # top of the next iteration; the same decision point)
+        term = torch.zeros_like(done)
+        if need_dual_feasible:
+            term = term | (info2["dual_error"] < dual_error_threshold)
+        if need_primal_feasible:
+            term = term | (info2["primal_error"] < primal_error_threshold)
+        if not correctoronly:
+            term = term | ((info2["dual_error"] < dual_error_threshold)
+                           & (info2["primal_error"] < primal_error_threshold)
+                           & (info2["dual_gap"] < duality_gap_threshold))
+        mu_exceeded = info2["mu"] > max_complementary_gap
+        ladder = torch.where(~okstep, 1, torch.where(
+            ~alpha_ok, 4, torch.where(mu_exceeded, 3, 0))).to(torch.int32)
+        code2 = torch.where((code != 0) | done, code, ladder)
+        done2 = done | ~commit | term | mu_exceeded
+        _tree_map(_assign, state, state2)
+        _tree_map(_assign, info_prev, info2)
+        for buf, v in ((pd_feas, pd_feas2), (it, it2), (code, code2),
+                       (done, done2)):
+            buf.copy_(v)
+
+    loop = {}
+
+    def setup(state, pd_feas, info):
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        carry = (_tree_map(torch.clone, state), flag.clone(),
+                 zero_info(None, dev), count.clone(), count.clone(),
+                 flag.clone())
+        loop["carry"] = carry
+        S, pd = carry[0], carry[1]
+        parts = (lambda: head(S, pd), eig_lowest,
+                 lambda mid, lows: tail_chunk(carry, mid, lows))
+        if not graphs:
+            from .graph import EagerSplit
+            loop["split"] = EagerSplit(*parts)
+            return
+        from .graph import GraphSplit
+        _assign(carry[5], True)     # the warm-up iteration commits nothing
+        loop["split"] = GraphSplit(*parts)
+        loop["done_host"] = torch.zeros((), dtype=torch.bool,
+                                        pin_memory=True)
+        loop["done_copied"] = torch.cuda.Event()
+
+    def run(state, pd_feas, info, nmax):
+        if not loop:
+            setup(state, pd_feas, info)
+        carry, split = loop["carry"], loop["split"]
+        S, pd, info_buf, it, code, done = carry
+        _tree_map(_assign, S, state)
+        _assign(pd, pd_feas)
+        _tree_map(_assign, info_buf, dict(info))
+        for buf in (it, code, done):
+            buf.zero_()
+        for i in range(int(nmax)):
+            if i and not graphs and bool(done):
+                break
+            split.run_head()
+            split.run_eig()
+            if i and graphs and loop["done_copied"].query() \
+                    and bool(loop["done_host"]):
+                break
+            split.run_tail()
+            if graphs and i + 1 < nmax:
+                loop["done_host"].copy_(done, non_blocking=True)
+                loop["done_copied"].record()
+                split.host_calls += 1
+        return S, pd, info_buf, it, code, done
+
+    run.loop = loop
+    return run

@@ -17,8 +17,9 @@ import torch
 import clrs_tpu_torch as ct
 from clrs_tpu_torch import device as D
 from clrs_tpu_torch.dd import kernels as K
+from clrs_tpu_torch.solver import graph as G
 from clrs_tpu_torch.solver import step as TS
-from torch_helpers import delsarte, spd_words, split_words
+from torch_helpers import delsarte, poison_x, spd_words, split_words
 
 STEP_KW = dict(gamma=0.9, beta_feasible=0.1, beta_infeasible=0.3,
                dual_error_threshold=1e-12, primal_error_threshold=1e-12)
@@ -517,14 +518,14 @@ def test_step_on_card_matches_cpu(cuda, monkeypatch):
     route and the chain kernels are among them."""
     sdp = ct.ClusteredLowRankSDP(delsarte(ct, 3))
     rows, routes, first_eig = {}, {}, {}
-    eig_lo_bound = TS._eig_lo_bound
+    eig_input = TS._eig_input
 
-    def recording(W2, eig_safety):
+    def recording(W2):
         first_eig.setdefault(W2[0].device.type,
                              tuple(c.cpu().clone() for c in W2))
-        return eig_lo_bound(W2, eig_safety)
+        return eig_input(W2)
 
-    monkeypatch.setattr(TS, "_eig_lo_bound", recording)
+    monkeypatch.setattr(TS, "_eig_input", recording)
     for dev in ("cpu", cuda):
         ds = TS.DeviceSDP(sdp, nw=5, device=dev)
         step = TS.make_step_body(ds, **STEP_KW)
@@ -553,3 +554,116 @@ def test_step_on_card_matches_cpu(cuda, monkeypatch):
     assert _bits(first_eig["cpu"], first_eig["cuda"])
     for a, b in zip(rows[False], rows[True]):
         assert a == pytest.approx(b, rel=1e-13, abs=1e-18)
+
+
+def _leaves(tree):
+    out = []
+    TS._tree_map(out.append, tree)
+    return out
+
+
+_AS_INT = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _same_tree(a, b):
+    """Two states or infos of one structure hold the same bits."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.view(_AS_INT.get(x.dtype, x.dtype)),
+                        y.view(_AS_INT.get(y.dtype, y.dtype)))
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw", [5, 8])
+def test_graph_step_equals_eager_step_on_card(nw, cuda):
+    """make_step (the head and tail replayed from CUDA graphs) gives the
+    eager step's state and info word for word, two steps of
+    delsarte(3,3), and counts the launches the eager step makes."""
+    ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(delsarte(ct, 3)), nw=nw,
+                      device=cuda)
+    body = TS.make_step_body(ds, **STEP_KW)
+    graph = TS.make_step(ds, **STEP_KW)
+    se, fe = TS.initial_state(ds, 100.0, 100.0), False
+    sg, fg = se, False
+    graph(se, False)                     # capture
+    for _ in range(2):
+        K.reset_counts()
+        se, ie = body(se, fe)
+        torch.cuda.synchronize()
+        eager_counts = K.counts()
+        K.reset_counts()
+        sg, ig = graph(sg, fg)
+        torch.cuda.synchronize()
+        assert K.counts() == eager_counts
+        assert _same_tree(se, sg) and _same_tree(ie, ig)
+        fe, fg = ie["pd_feas"], ig["pd_feas"].clone()
+        sg = TS._tree_map(torch.clone, sg)
+
+
+@pytest.mark.gpu
+def test_graph_chunk_equals_eager_chunk_on_card(cuda, monkeypatch):
+    """make_run_chunk through the graphs against the same loop run eagerly
+    on the card: chunks of 1 and 3, then a chunk that terminates in its
+    middle (delsarte(3,3) with a loose duality-gap threshold)."""
+    ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(delsarte(ct, 3)), nw=5,
+                      device=cuda)
+    kw = dict(STEP_KW, duality_gap_threshold=1e-2)
+    runs = {}
+    for capture in (True, False):
+        monkeypatch.setattr(TS, "_CAPTURE", capture)
+        run = TS.make_run_chunk(ds, **kw)
+        carry = (TS.initial_state(ds, 100.0, 100.0), False,
+                 TS.zero_info(None, cuda))
+        rows = []
+        for n in (1, 3, 40):
+            out = run(*carry, n)
+            carry = out[:3]
+            rows.append(TS._tree_map(torch.clone, out))
+        runs[capture] = rows
+        assert isinstance(run.loop["split"], G.GraphSplit) == capture
+    for a, b in zip(runs[True], runs[False]):
+        assert _same_tree(a, b)
+    it, code, done = (int(runs[True][-1][k]) for k in (3, 4, 5))
+    assert code == 0 and done and 0 < it < 40
+
+
+@pytest.mark.gpu
+def test_graph_replays_need_no_host_sync(cuda):
+    """The head and tail replays raise nothing under
+    torch.cuda.set_sync_debug_mode("error"); only the eigensolver between
+    them waits on the device."""
+    ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(delsarte(ct, 3)), nw=5,
+                      device=cuda)
+    step = TS.make_step(ds, **STEP_KW)
+    step(TS.initial_state(ds, 100.0, 100.0), False)
+    split = step.buffers["split"]
+    for part in (split.run_head, split.run_eig, split.run_tail):
+        if part != split.run_eig:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            part()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capture", [True, False])
+def test_failing_cholesky_gives_code_1_on_card(capture, cuda, monkeypatch):
+    """A NaN in X makes chol(X) fail and the step-length matrices NaN,
+    where cuSOLVER's info is nonzero: the step and the chunk, through the
+    graphs and eagerly, end with ok False and code 1, not an exception;
+    so does X = -I."""
+    monkeypatch.setattr(TS, "_CAPTURE", capture)
+    ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(delsarte(ct, 3)), nw=5,
+                      device=cuda)
+    _, info = TS.make_step(ds, **STEP_KW)(
+        poison_x(TS.initial_state(ds, 1.0, 1.0)), False)
+    assert not bool(info["ok"]) and not bool(info["ok_X"])
+    run = TS.make_run_chunk(ds, duality_gap_threshold=1e-15, **STEP_KW)
+    for state in (poison_x(TS.initial_state(ds, 1.0, 1.0)),
+                  TS.initial_state(ds, -1.0, 100.0)):
+        out = run(state, False, TS.zero_info(None, cuda), 3)
+        assert (int(out[3]), int(out[4]), bool(out[5])) == (0, 1, True)

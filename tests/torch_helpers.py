@@ -83,3 +83,58 @@ def polyopt(api):
     return api.Problem(api.Maximize(api.Objective(0, {}, {"lambda": 1})),
                        [api.Constraint(x ** 2 + 1, c, {"lambda": 1},
                                        samples)])
+
+
+# the info entries a chunk's result is compared on (the contract of
+# tests/test_torch_step.py::test_slice_matches_jax_f64_steps)
+CHUNK_INFO = ("mu", "d_obj", "p_obj", "alpha_d", "alpha_p")
+
+
+def chunk_rows(step_mod, ds, run, zero_info, start, nmaxs):
+    """Run ``run`` (a make_run_chunk of either package, from the step
+    module ``step_mod``) from initial_state(ds, *start) for chunks of
+    ``nmaxs`` iterations in turn; per chunk, ((it_done, code, done,
+    pd_feas), the CHUNK_INFO values)."""
+    state = step_mod.initial_state(ds, *start)
+    info0 = {k: float(v) for k, v in step_mod.make_assess(ds)(state).items()}
+    carry = (state, False, zero_info(info0))
+    rows = []
+    for n in nmaxs:
+        state, pd, info, it, code, done = run(*carry, n)
+        carry = (state, pd, info)
+        rows.append(((int(it), int(code), bool(done), bool(pd)),
+                     tuple(float(info[k]) for k in CHUNK_INFO)))
+    return rows
+
+
+def assert_chunks_match_jax(step_j, dj, run_j, chunk_kw, start, nmaxs,
+                            endings):
+    """The port's make_run_chunk (polyopt, f32 nw=5, the CPU) against the
+    JAX package's ``run_j`` on ``dj`` (its polyopt DeviceSDP, from its step
+    module ``step_j``): the JAX chunks end as ``endings`` [(it_done, code,
+    done)] say, the port's (it_done, code, done, pd_feas) equal them, and
+    the CHUNK_INFO values agree at rel 1e-13, abs 1e-18."""
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.solver import step as TS
+
+    rows_j = chunk_rows(step_j, dj, run_j, step_j.zero_info, start, nmaxs)
+    dt = TS.DeviceSDP(ct.ClusteredLowRankSDP(polyopt(ct)), nw=5,
+                      device="cpu")
+    rows_t = chunk_rows(TS, dt, TS.make_run_chunk(dt, **chunk_kw),
+                        lambda i: TS.zero_info(i, "cpu"), start, nmaxs)
+    assert [r[0][:3] for r in rows_j] == endings
+    for (flags_j, info_j), (flags_t, info_t) in zip(rows_j, rows_t):
+        assert flags_t == flags_j
+        for a, b in zip(info_j, info_t):
+            assert b == pytest.approx(a, rel=1e-13, abs=1e-18), \
+                (info_j, info_t)
+
+
+def poison_x(state):
+    """Put a NaN at (0, 1) and (1, 0) of word 0 of X's first class, in
+    place: chol(X) then fails at its second pivot and leaves NaNs in the
+    factor, so the step-length matrices are not finite. Returns state."""
+    w0 = state["X"][0][0][0]
+    w0[:, 0, 1] = float("nan")
+    w0[:, 1, 0] = float("nan")
+    return state

@@ -1,22 +1,31 @@
 """Profile steady IPM iterations of the PyTorch/CUDA port on one card.
 
-Solves delsarte(3, d) (clrs_tpu_torch.examples, as chip_smoke.py does) with
-``clrs_tpu_torch.solvesdp(device="cuda")`` for ``--warmup`` + 2 x
-``--iters`` iterations and reads the loop at its iteration boundaries (the
-solver's callback, after a device sync): the first ``--iters`` steady
-iterations are timed on the host clock, the next ``--iters`` run under
-torch.profiler. Prints one JSON line: wall ms per iteration (unprofiled
-and profiled), device kernels per iteration, device busy ms and share per
-iteration (kernels run on one stream, so their times add), the port's
-kernel launches per iteration (clrs_tpu_torch.dd.kernels counters, the two
-forms of the triangular solve apart), the calls and device ms per
-iteration of each of the port's CUDA kernels (by template instance) and the
-largest device times by kernel name. Run it from the root of a checkout
-(the package is imported from beside the script, so a copy of the script in
-another checkout profiles that checkout) on a machine with a card:
+Solves delsarte(3, d) (clrs_tpu_torch.examples, as chip_smoke.py does) from
+omega 100 I, either by the eager step (``--mode eager``:
+make_step_body, every kernel launched by the host) or through the step's
+CUDA graphs (``--mode graph``: make_run_chunk with chunks of one, as
+solvesdp runs by default), each iteration ending in the one host read of
+its info that solvesdp makes (chip_smoke.drive). The first iteration
+warms up (and captures the graphs); the next ``--iters`` are timed on the
+host clock, synchronised, and ``--iters`` more run under torch.profiler.
+Prints one JSON line: wall ms per iteration (unprofiled and profiled),
+device kernels per iteration, device busy ms and share per iteration
+(kernels run on one stream, so their times add), host launch calls per
+iteration (the CUDA runtime and driver calls that launch a kernel or a
+graph or copy memory), peak device memory, the capture seconds, the
+port's kernel launches per iteration (clrs_tpu_torch.dd.kernels counters,
+the two forms of the triangular solve apart), the calls and device ms per
+iteration of each of the port's CUDA kernels (by template instance) and
+the largest device times by kernel name. Run it from the root of a
+checkout (the package is imported from beside the script, so a copy of
+the script in another checkout profiles that checkout) on a machine with
+a card:
 
-    python3 torch_step_profile.py --d 10 --warmup 3 --iters 3
-    python3 torch_step_profile.py --d 95 --warmup 1 --iters 1
+    python3 torch_step_profile.py --d 10 --iters 3 --mode graph
+    python3 torch_step_profile.py --d 95 --iters 1 --mode eager
+
+Run one profile per process: torch.profiler loses device records in a
+process after a session with hundreds of thousands of them.
 """
 
 from __future__ import annotations
@@ -33,15 +42,15 @@ from pathlib import Path
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--d", type=int, default=10)
-    ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--mode", choices=("eager", "graph"), default="graph")
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import clrs_tpu_torch as ct
+    from chip_smoke import device_sdp, drive
     from clrs_tpu_torch.dd import kernels as K
     from clrs_tpu_torch.examples import delsarte_problem
 
@@ -50,32 +59,26 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    W, N = args.warmup, args.iters
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    marks, launches = {}, {}
-
-    def cb(it, info):
+    N = args.iters
+    ds = device_sdp(delsarte_problem(3, args.d, Fraction(1, 2)))
+    stats, _, one = drive(ds, args.mode, N)
+    K.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(N):
+            one()
         torch.cuda.synchronize()
-        marks[it] = time.time()
-        if it == W + N:
-            K.reset_counts()
-            prof.start()
-        elif it == W + 2 * N:
-            prof.stop()
-            plain = {f.__name__ for f in K._PLAIN}
-            launches.update({k: v / N for k, v in K.counts().items()
-                             if k not in plain})
-
-    problem = delsarte_problem(3, args.d, Fraction(1, 2))
-    ct.solvesdp(problem, device="cuda", omega_p=100, omega_d=100,
-                dual_error_threshold=1e-12, primal_error_threshold=1e-12,
-                maxiterations=W + 2 * N, verbose=False, callback=cb)
-    if len(marks) != W + 2 * N:
-        sys.exit(f"the solve stopped after {len(marks)} iterations")
-    wall = 1e3 * (marks[W + N] - marks[W]) / N
-    wall_prof = 1e3 * (marks[W + 2 * N] - marks[W + N]) / N
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall_prof = 1e3 * (time.perf_counter() - t0) / N
+    plain = {f.__name__ for f in K._PLAIN}
+    launches = {k: v / N for k, v in K.counts().items() if k not in plain}
+    dev, host = [], 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev.append(e)
+        elif e.name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                                "cudaMemcpy", "cudaMemset")):
+            host += 1
     by_name = {}
     for e in dev:
         c, t = by_name.get(e.name, (0, 0.0))
@@ -94,12 +97,16 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
     print(json.dumps({
         "card": card, "checkout": str(Path(__file__).resolve().parent),
-        "problem": f"delsarte(3,{args.d})", "warmup": W, "iters": N,
-        "wall_ms_per_iteration": wall,
+        "problem": f"delsarte(3,{args.d})", "mode": args.mode, "iters": N,
+        "wall_ms_per_iteration": stats["wall_ms"],
         "wall_ms_per_iteration_profiled": wall_prof,
         "device_kernels_per_iteration": len(dev) / N,
         "device_busy_ms_per_iteration": busy if dev else None,
-        "device_busy_share": busy / wall_prof if dev else None,
+        "device_busy_share": busy / stats["wall_ms"] if dev else None,
+        "host_launch_calls_per_iteration": host / N,
+        "peak_device_mib": stats["peak_mib"],
+        "peak_device_mib_above_held": stats["peak_above_held_mib"],
+        "capture_s": stats.get("capture_s"),
         "port_launches_per_iteration": launches,
         "port_kernel_calls_and_device_ms_per_iteration": {
             k: [c / N, t / N] for k, (c, t) in sorted(port.items())},
