@@ -34,7 +34,24 @@ Phases (one line each; any failure exits non-zero):
      the eager step's to the last digit; then, at both problems, in turns
      eager, graph, graph, eager, wall ms per iteration, capture seconds,
      host calls and kernel launches per iteration and peak memory, and
-     host launch calls and device kernels of one profiled iteration.
+     host launch calls and device kernels of one profiled iteration;
+  7. the f64 substrate's ops (clrs_tpu_torch.dd.f64ops) and slice GEMM
+     (clrs_tpu_torch.dd.slice_gemm) on the card against the same functions
+     on the CPU, bit for bit: nw 2, 4 and 5, magnitudes 1e-150..1e150
+     mixed in one expansion, the slice GEMM at k 1, 22 and 192;
+  8. delsarte(3, 10) at substrate="f64" (nw 2) through solvesdp at
+     sync_every 1: code 0, Optimal, objective within 1e-9 of the oracle in
+     the JAX f64 solve's 28 iterations, no f32 kernel or plain version run;
+  9. three iterations of delsarte(3, 95) at f64 nw 2 (blocked f64
+     factorizations at P = 192): ok, finite mu, alpha > 0, and mu, alpha_d,
+     alpha_p within rel 1e-12 of phase 5's f32 values; then the slice GEMM
+     card against CPU at the deepest and the largest of its shapes, and
+     its time at the largest beside its DGEMM's time and bound;
+ 10. min_f(2) at the reference's literal defaults (prec 256: 5 f64
+     words): pdOpt, code 0, objective within 1e-9, gap below 1e-15;
+ 11. the f64 graphs against the eager f64 step (delsarte(3,10)'s first
+     step word for word), and phase 6's rows for f64 at both problems,
+     with one profiled graph iteration each (torch_step_profile.py).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -963,8 +980,9 @@ def delsarte_3_95(problem):
     return counts, rows
 
 
-def device_sdp(problem):
-    """The DeviceSDP that solvesdp builds for ``problem`` on the card."""
+def device_sdp(problem, nw=5, dtype=None):
+    """The DeviceSDP that solvesdp builds for ``problem`` on the card (f32
+    words unless ``dtype`` says otherwise)."""
     import clrs_tpu_torch as ct
     from clrs_tpu_torch.compile.preprocess import preprocess_sdp
     from clrs_tpu_torch.model.checks import remove_empty_blocks
@@ -973,7 +991,8 @@ def device_sdp(problem):
     sdp = ct.ClusteredLowRankSDP(problem)
     remove_empty_blocks(sdp, verbose=False)
     sdp, _ = preprocess_sdp(sdp, verbose=False)
-    return DeviceSDP(sdp, nw=5, device="cuda")
+    return DeviceSDP(sdp, nw=nw, device="cuda",
+                     **({} if dtype is None else {"dtype": dtype}))
 
 
 def drive(ds, mode, n):
@@ -1043,7 +1062,7 @@ def drive(ds, mode, n):
 def profile_one(one):
     """One more iteration under torch.profiler: (host launch calls: the
     CUDA runtime and driver calls that launch a kernel or a graph or copy
-    memory; device kernels)."""
+    memory; device kernels; their summed device ms, one stream)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1052,13 +1071,360 @@ def profile_one(one):
         one()
         torch.cuda.synchronize()
     host = dev = 0
+    busy = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev += 1
+            busy += e.time_range.elapsed_us() / 1e3
         elif e.name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
                                 "cudaMemcpy", "cudaMemset")):
             host += 1
-    return host, dev
+    return host, dev, busy
+
+
+# ---------------------------------------------------------------------------
+# phases 7-11: the f64 substrate (f64 words, slice GEMMs over one cuBLAS
+# DGEMM each, PyTorch expansion ops; no kernel of csrc/ runs on it)
+# ---------------------------------------------------------------------------
+
+F64_NWS = (2, 4, 5)
+F64_DGEMM_OPS_PER_S = 67e12   # f64 tensor cores (NVIDIA's H100 SXM data sheet)
+# clrs_tpu.solvesdp(delsarte(3,10), substrate="f64") on the CPU with the
+# arguments of solve_delsarte_3_10: pdOpt, code 0, 13.15831434739031 in 28
+# iterations (the JAX package's f64 solve)
+ITERATIONS_3_10_F64 = 28
+# min_f(2) at the reference's literal defaults (prec 256: 5 f64 words), the
+# JAX package's CPU solve: pdOpt, code 0, gap 5.1e-16 (PARITY.md:111-123)
+MIN_F_2 = -2.112913881423605
+
+
+def _f64_words(rng, shape, nw, positive=False):
+    """nw f64 words on the CPU: half the elements a normalised expansion,
+    half words of independent magnitudes, all between 1e-150 and 1e150."""
+    import numpy as np
+    import torch
+
+    mag = lambda: 10.0 ** rng.uniform(-150, 150, shape)  # noqa: E731
+    sign = 1.0 if positive else rng.choice([-1.0, 1.0], shape)
+    ws = [sign * rng.uniform(1, 2, shape) * mag()]
+    wild = rng.random(shape) < 0.5
+    for _ in range(1, nw):
+        tame = ws[-1] * 2.0 ** -rng.integers(53, 60, shape) \
+            * rng.uniform(-1, 1, shape)
+        ws.append(np.where(wild, rng.uniform(-1, 1, shape) * mag(), tame))
+    return tuple(torch.from_numpy(w) for w in ws)
+
+
+def _same_f64(xs, ys):
+    """Bit-identical f64 word tuples (card against CPU), NaN as NaN."""
+    import torch
+
+    for x, y in zip(xs, ys):
+        x, y = x.cpu(), y.cpu()
+        nan = torch.isnan(x)
+        if not torch.equal(nan, torch.isnan(y)) or not torch.equal(
+                torch.where(nan, 0.0, x).view(torch.int64),
+                torch.where(nan, 0.0, y).view(torch.int64)):
+            return False
+    return len(xs) == len(ys)
+
+
+def _cuda(ws):
+    return tuple(w.to("cuda") for w in ws)
+
+
+def compare_f64_ops():
+    """Phase 7: every f64 op on the card against the same op on the CPU
+    (CUDA f64 keeps subnormals; the CPU runs unflushed), bit for bit, at
+    nw 2, 4 and 5, 2^15 elements with magnitudes 1e-150..1e150 mixed in
+    one expansion."""
+    import numpy as np
+    import torch
+
+    from clrs_tpu_torch.dd import f64ops as F
+
+    ops = {"add": lambda x, y, p, a: F.dd_add(x, y),
+           "sub": lambda x, y, p, a: F.dd_sub(x, y),
+           "mul": lambda x, y, p, a: F.dd_mul(x, y),
+           "div": lambda x, y, p, a: F.dd_div(x, y),
+           "mul_f64": lambda x, y, p, a: F.dd_mul_f64(x, a),
+           "add_f64": lambda x, y, p, a: F.dd_add_f64(x, a),
+           "rsqrt": lambda x, y, p, a: F.dd_rsqrt(p),
+           "sqrt": lambda x, y, p, a: F.dd_sqrt(p),
+           "qd_add": lambda x, y, p, a: F.qd_add(x, y),
+           "qd_mul": lambda x, y, p, a: F.qd_mul(x, y),
+           "qd_mul_f64": lambda x, y, p, a: F.qd_mul_f64(x, a),
+           "abs": lambda x, y, p, a: F.dd_abs(x),
+           "max": lambda x, y, p, a: F.dd_max(x, y),
+           "min": lambda x, y, p, a: F.dd_min(x, y),
+           "lt": lambda x, y, p, a: (F.dd_lt(x, y).double(),)}
+    for nw in F64_NWS:
+        rng = np.random.default_rng(80 + nw)
+        n = 1 << 15
+        args = (_f64_words(rng, n, nw), _f64_words(rng, n, nw),
+                _f64_words(rng, n, nw, positive=True),
+                _f64_words(rng, n, 1)[0])
+        card = (_cuda(args[0]), _cuda(args[1]), _cuda(args[2]),
+                _cuda((args[3],))[0])
+        bad = [k for k, f in ops.items()
+               if not _same_f64(f(*args), f(*card))]
+        torch.cuda.synchronize()
+        print(f"f64 ops nw {nw}, card against CPU: {len(ops) - len(bad)} "
+              f"of {len(ops)} bit-identical", flush=True)
+        if bad:
+            fail(f"f64 ops {bad} at nw {nw} differ between card and CPU")
+
+
+def compare_slice_matmul(shapes):
+    """Phase 7 (and after phase 9, at the largest depth of a delsarte(3,95)
+    iteration): slice_matmul on the card against the CPU, bit for bit, at
+    each (batch, m, k, n, nw) of ``shapes``."""
+    import numpy as np
+
+    from clrs_tpu_torch.dd.slice_gemm import slice_matmul
+
+    for (B, m, k, n, nw) in shapes:
+        rng = np.random.default_rng(k + 7 * nw)
+        a = _f64_words(rng, (B, m, k), nw)
+        b = _f64_words(rng, (B, k, n), nw)
+        same = _same_f64(slice_matmul(a, b),
+                         slice_matmul(_cuda(a), _cuda(b)))
+        print(f"slice_matmul (B {B}, {m}x{k}x{n}, nw {nw}), card against "
+              f"CPU: {'bit-identical' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            fail(f"slice_matmul differs between card and CPU at "
+                 f"{(B, m, k, n, nw)}")
+
+
+def time_slice_matmul(card, shape):
+    """slice_matmul's time at ``shape`` (batch, m, k, n, nw) on the card,
+    called eagerly and replayed from a CUDA graph (as on the main path),
+    the time of its one DGEMM on slice-stacked operands of the same shape,
+    and the DGEMM's bound (f64 tensor-core FLOPs or bytes at 3.35 TB/s)."""
+    import numpy as np
+    import torch
+
+    from clrs_tpu_torch.dd.slice_gemm import slice_matmul, slice_params
+
+    B, m, k, n, nw = shape
+    rng = np.random.default_rng(1)
+    a = _cuda(_f64_words(rng, (B, m, k), nw))
+    b = _cuda(_f64_words(rng, (B, k, n), nw))
+    _, nsl, _ = slice_params(k, nw)
+    A = torch.randn((B, nsl * m, k), dtype=torch.float64, device="cuda")
+    Bm = torch.randn((B, k, nsl * n), dtype=torch.float64, device="cuda")
+    total = time_ms(lambda: slice_matmul(a, b), reps=10)
+    gemm = time_ms(lambda: torch.matmul(A, Bm), reps=10)
+    # as on the main path: one call replayed from a CUDA graph
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        slice_matmul(a, b)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        slice_matmul(a, b)
+    replay = time_ms(g.replay, reps=10)
+    flops = 2.0 * B * nsl * m * k * nsl * n
+    nbytes = 8.0 * B * (nsl * m * k + k * nsl * n + nsl * m * nsl * n)
+    t_ops, t_bytes = flops / F64_DGEMM_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"slice_matmul at the largest delsarte(3,95) f64 shape (B {B}, "
+          f"{m}x{k}x{n}, nw {nw}, {nsl} slices): {total:.4f} ms a call "
+          f"eagerly, {replay:.4f} ms replayed from a graph; its DGEMM ({B} "
+          f"x {nsl * m}x{k}x{nsl * n}) {gemm:.4f} ms = {gemm / replay:.3f} "
+          f"of the replay, bound {1e3 * max(t_ops, t_bytes):.6f} ms ({by})"
+          f" [{card}]", flush=True)
+
+
+def check_no_kernels(label):
+    """The f64 path runs no kernel of csrc/ and no plain version of one."""
+    from clrs_tpu_torch.dd import kernels as K
+
+    ran = {k: v for k, v in K.counts().items() if v}
+    if ran:
+        fail(f"{label} ran f32 kernels or plain versions: {ran}")
+
+
+def solve_delsarte_3_10_f64(problem):
+    """Phase 8: delsarte(3,10) at substrate="f64" (nw 2) through solvesdp
+    on the default device at sync_every 1 (the step's CUDA graphs)."""
+    import torch
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.dd import kernels as K
+
+    iters = []
+    K.reset_counts()
+    t0 = time.time()
+    status, dualsol, primalsol, t, code = ct.solvesdp(
+        problem, substrate="f64", omega_p=100, omega_d=100, sync_every=1,
+        verbose=False, callback=lambda it, info: iters.append(it),
+        **{k: STEP_KW[k] for k in ("dual_error_threshold",
+                                   "primal_error_threshold")})
+    torch.cuda.synchronize()
+    obj = float(ct.objvalue(problem, primalsol))
+    n_it = iters[-1] if iters else 0
+    label = "delsarte(3,10) f64"
+    print(f"{label}: code {code} status {status!r} objective {obj!r} |err| "
+          f"{abs(obj - DELSARTE_3_10):.3e} iterations {n_it} (the JAX f64 "
+          f"solve: {ITERATIONS_3_10_F64}), solve {t:.3f} s with the capture,"
+          f" {time.time() - t0:.1f} s in all", flush=True)
+    if code != 0 or not ct.optimal(status):
+        fail(f"{label} ended with code {code}, status {status!r}")
+    if not abs(obj - DELSARTE_3_10) < 1e-9:
+        fail(f"{label} objective {obj!r} is not within 1e-9")
+    if n_it != ITERATIONS_3_10_F64:
+        fail(f"{label} took {n_it} iterations, not {ITERATIONS_3_10_F64}")
+    check_no_kernels(label)
+
+
+def delsarte_3_95_f64(problem, rows_f32):
+    """Phase 9: three iterations of delsarte(3,95) at f64 nw 2 through
+    solvesdp (blocked f64 factorizations at P = 192): ok, finite mu,
+    alpha > 0, and mu, alpha_d, alpha_p within rel 1e-12 of phase 5's f32
+    values (both substrates carry at least 105 bits). Returns the
+    (batch, m, k, n, nw) of every slice GEMM of the run."""
+    import math
+
+    import torch
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.dd import linalg as dl
+
+    shapes = set()
+    inner = dl.slice_matmul
+
+    def recording(a, b, nw=None):
+        shapes.add((int(a[0].shape[0]), int(a[0].shape[-2]),
+                    int(a[0].shape[-1]), int(b[0].shape[-1]),
+                    nw or len(a)))
+        return inner(a, b, nw)
+
+    rows = []
+    K.reset_counts()
+    dl.slice_matmul = recording
+    try:
+        status, _, _, t, code = ct.solvesdp(
+            problem, substrate="f64", omega_p=100, omega_d=100,
+            maxiterations=3, verbose=False,
+            callback=lambda it, info: rows.append(info),
+            **{k: STEP_KW[k] for k in ("dual_error_threshold",
+                                       "primal_error_threshold")})
+    finally:
+        dl.slice_matmul = inner
+    torch.cuda.synchronize()
+    keys = ("mu", "alpha_d", "alpha_p")
+    print(f"delsarte(3,95) f64: code {code}; iterations {len(rows)}; "
+          f"{t:.1f} s with the capture; " + "; ".join(
+              f"{k} {[r[k] for r in rows]}" for k in keys), flush=True)
+    if len(rows) != 3 or code != 2:
+        fail(f"delsarte(3,95) f64 stopped after {len(rows)} iterations, "
+             f"code {code}")
+    for r, r32 in zip(rows, rows_f32):
+        if not (r["ok"] and math.isfinite(r["mu"]) and r["alpha_d"] > 0
+                and r["alpha_p"] > 0):
+            fail(f"delsarte(3,95) f64 iteration failed: {r}")
+        for k in keys:
+            if not abs(r[k] - r32[k]) <= 1e-12 * abs(r32[k]):
+                fail(f"delsarte(3,95) f64 {k} {r[k]!r} is not within rel "
+                     f"1e-12 of the f32 {r32[k]!r}")
+    print("delsarte(3,95) f64: mu, alpha_d and alpha_p within rel 1e-12 of "
+          "phase 5's f32 values", flush=True)
+    check_no_kernels("delsarte(3,95) f64")
+    return sorted(shapes)
+
+
+def min_f_literal_defaults():
+    """Phase 10: min_f(2) at the reference's literal solvesdp defaults
+    (prec 256, so 5 f64 words; gap 1e-15; errors 1e-30; omega 1e10) on
+    the default device: pdOpt, code 0, the objective within 1e-9 of the
+    JAX package's, the final gap below 1e-15."""
+    import torch
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.examples import min_f
+
+    last = []
+    t0 = time.time()
+    problem, status, _, primalsol, code = min_f(
+        2, substrate="f64", prec=256, verbose=False,
+        callback=lambda it, info: last.append((it, info)))
+    torch.cuda.synchronize()
+    obj = float(ct.objvalue(problem, primalsol))
+    it, info = last[-1] if last else (0, {"dual_gap": float("nan")})
+    print(f"min_f(2) literal defaults, f64 nw 5: code {code} status "
+          f"{status!r} objective {obj!r} |err| {abs(obj - MIN_F_2):.3e} "
+          f"gap {info['dual_gap']!r} iterations {it}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if code != 0 or not ct.optimal(status):
+        fail(f"min_f(2) ended with code {code}, status {status!r}")
+    if not abs(obj - MIN_F_2) < 1e-9 or not info["dual_gap"] < 1e-15:
+        fail(f"min_f(2): objective {obj!r}, gap {info['dual_gap']!r}")
+
+
+def graph_vs_eager_f64(card, problem_3_10, problem_3_95):
+    """Phase 11: the f64 step's graphs against its eager form:
+    delsarte(3,10)'s first step word for word; then phase 6's rows at
+    both problems: wall ms per iteration, capture and instantiation
+    seconds, host calls and peak device memory, in turns eager, graph,
+    graph, eager at delsarte(3,10) and graph, eager at delsarte(3,95)
+    (whose eager iteration takes seconds); and one profiled graph
+    iteration at each (device kernels, their busy ms and share of the
+    unprofiled wall time, host launch calls), delsarte(3,95) last: its
+    hundreds of thousands of records come after every other profile of
+    the process."""
+    import torch
+
+    from clrs_tpu_torch.solver.step import (initial_state, make_step,
+                                            make_step_body)
+
+    ds10 = device_sdp(problem_3_10, nw=2, dtype=torch.float64)
+    s0 = initial_state(ds10, 100.0, 100.0)
+    eager = make_step_body(ds10, **STEP_KW)(s0, False)
+    graph = make_step(ds10, **STEP_KW)(s0, False)
+    differ, n = _tree_differ(eager, graph)
+    print(f"delsarte(3,10) f64 first step, graph against eager: {differ} of "
+          f"{n} word arrays and info entries differ", flush=True)
+    if differ:
+        fail("the f64 graph step differs from the eager step")
+    del graph
+    ds95 = device_sdp(problem_3_95, nw=2, dtype=torch.float64)
+    print(card, flush=True)
+    runs = (("delsarte(3,10) f64", ds10, GRAPH_PASSES, 5),
+            ("delsarte(3,95) f64", ds95, ("graph", "eager"), 2))
+    for label, ds, passes, n_it in runs:
+        for mode in passes:
+            stats, _, one = drive(ds, mode, n_it if mode == "graph" else
+                                  max(1, n_it // 2))
+            print(f"{label} {mode}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in stats.items()), flush=True)
+            if mode == "graph":
+                graph_one, wall = one, stats["wall_ms"]
+        host, dev, busy = profile_one(graph_one)
+        print(f"{label} graph, one profiled iteration: host launch calls "
+              f"{host}, device kernels " + (
+                  f"{dev}, busy {busy:.3f} ms = {busy / wall:.3f} of the "
+                  f"unprofiled wall {wall:.3f} ms" if dev else
+                  "not measured (no device records)"), flush=True)
+
+
+def _tree_differ(a, b):
+    """(arrays of two states or infos whose bits differ, arrays)."""
+    import torch
+
+    from clrs_tpu_torch.solver.step import _tree_map
+
+    leaves = ([], [])
+    for out, acc in zip((a, b), leaves):
+        _tree_map(acc.append, out)
+    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
+    differ = sum(not torch.equal(x.view(as_int.get(x.dtype, x.dtype)),
+                                 y.view(as_int.get(y.dtype, y.dtype)))
+                 for x, y in zip(*leaves))
+    return differ + abs(len(leaves[0]) - len(leaves[1])), len(leaves[0])
 
 
 GRAPH_PASSES = ("eager", "graph", "graph", "eager")
@@ -1074,25 +1440,17 @@ def graph_vs_eager(card, problem_3_10, problem_3_95, rows_3_95):
     launches per iteration and peak device memory; and one profiled
     iteration of each mode at delsarte(3,10): host launch calls and device
     kernels."""
-    import torch
-
-    from clrs_tpu_torch.solver.step import (_tree_map, initial_state,
-                                            make_step, make_step_body)
+    from clrs_tpu_torch.solver.step import (initial_state, make_step,
+                                            make_step_body)
 
     ds10 = device_sdp(problem_3_10)
     s0 = initial_state(ds10, 100.0, 100.0)
     eager = make_step_body(ds10, **STEP_KW)(s0, False)
     graph = make_step(ds10, **STEP_KW)(s0, False)
-    leaves = ([], [])
-    for out, acc in zip((eager, graph), leaves):
-        _tree_map(acc.append, out)
-    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
-    differ = sum(not torch.equal(a.view(as_int.get(a.dtype, a.dtype)),
-                                 b.view(as_int.get(b.dtype, b.dtype)))
-                 for a, b in zip(*leaves))
+    differ, n = _tree_differ(eager, graph)
     print(f"delsarte(3,10) first step, graph against eager: {differ} of "
-          f"{len(leaves[0])} word arrays and info entries differ", flush=True)
-    if differ or len(leaves[0]) != len(leaves[1]):
+          f"{n} word arrays and info entries differ", flush=True)
+    if differ:
         fail("the graph step differs from the eager step at delsarte(3,10)")
 
     solve_delsarte_3_10(problem_3_10, sync_every=4)
@@ -1117,7 +1475,7 @@ def graph_vs_eager(card, problem_3_10, problem_3_95, rows_3_95):
     print("delsarte(3,95): the eager and graph runs' mu, alpha_d and "
           "alpha_p equal phase 5's to the last digit", flush=True)
     for mode in ("eager", "graph"):
-        host, dev = profile_one(ones["delsarte(3,10)", mode])
+        host, dev, _ = profile_one(ones["delsarte(3,10)", mode])
         print(f"delsarte(3,10) {mode}, one profiled iteration: host launch "
               f"calls {host}, device kernels "
               f"{dev if dev else 'not measured (no device records)'}",
@@ -1135,6 +1493,11 @@ def main():
         fail(f"run from the repository root: {e}")
     card = card_line()
     print(card, flush=True)
+    start = time.time()
+
+    def lap(phases):
+        print(f"phases {phases} done at {time.time() - start:.1f} s",
+              flush=True)
 
     t0 = time.time()
     build.library()
@@ -1145,6 +1508,7 @@ def main():
     print("kernels vs plain versions:", flush=True)
     recs = compare_kernels()
     torch.cuda.synchronize()
+    lap("1-3")
 
     from clrs_tpu_torch.examples import delsarte_problem
 
@@ -1156,6 +1520,25 @@ def main():
     counts_3_95, rows_3_95 = delsarte_3_95(problem_3_95)
     runs = {"delsarte(3,10)": counts_3_10, "delsarte(3,95)": counts_3_95}
     graph_vs_eager(card, problem_3_10, problem_3_95, rows_3_95)
+    lap("4-6")
+
+    compare_f64_ops()
+    compare_slice_matmul([(2, 9, k, 7, nw) for k in (1, 22, 192)
+                          for nw in F64_NWS])
+    solve_delsarte_3_10_f64(problem_3_10)
+    lap("7-8")
+    shapes = delsarte_3_95_f64(problem_3_95, rows_3_95)
+    print(f"delsarte(3,95) f64: slice GEMM shapes (B, m, k, n, nw) {shapes}",
+          flush=True)
+    deepest = max(shapes, key=lambda sh: (sh[2], sh[0] * sh[1] * sh[3]))
+    largest = max(shapes, key=lambda sh: sh[0] * sh[1] * sh[2] * sh[3])
+    compare_slice_matmul(sorted({deepest, largest}))
+    time_slice_matmul(card, largest)
+    lap("9")
+    min_f_literal_defaults()
+    lap("10")
+    graph_vs_eager_f64(card, problem_3_10, problem_3_95)
+    lap("11")
     for name, r in recs.items():
         r["launches_by_run"] = {k: c[name] for k, c in runs.items()}
         r["launches"] = sum(r["launches_by_run"].values())

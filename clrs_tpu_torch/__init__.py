@@ -8,7 +8,9 @@ package's modules at the same relative paths (``model/``, ``poly/``,
 and the numpy half of ``dd/core.py``). The solver is ported:
 ``solvesdp(problem)`` runs the f32-expansion interior point method on the
 card through hand-written CUDA kernels (:mod:`clrs_tpu_torch.dd.kernels`);
-``device="cpu"`` runs the kernels' plain PyTorch versions. This package
+``device="cpu"`` runs the kernels' plain PyTorch versions.
+``substrate="f64"`` runs it on f64 words instead (the JAX package's
+substrate off the TPU: :mod:`clrs_tpu_torch.dd.f64ops` and slice GEMMs). This package
 imports neither JAX nor anything of :mod:`clrs_tpu`.
 """
 

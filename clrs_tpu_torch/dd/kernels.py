@@ -507,6 +507,18 @@ def _check_words(words, name):
             raise ValueError(f"{name}: words differ in shape or device")
 
 
+def _refuse_f64(name, *ops):
+    """Raise for f64 words on either route: the kernels and their plain
+    versions compute on f32 words, and nothing casts f64 words to f32
+    (the f64 substrate has its own forms, :mod:`.f64ops`)."""
+    for op in ops:
+        for c in op:
+            if c.dtype == torch.float64:
+                raise ValueError(f"{name}: f64 words are not an f32 "
+                                 "kernel's input (use the f64 substrate's "
+                                 "forms)")
+
+
 def _check_int(name, *pairs):
     """Each (tensor, dtype, shape) must be a CUDA tensor of that dtype and
     shape."""
@@ -544,6 +556,7 @@ def limb_extract(words, L, side, layout="limb"):
         raise ValueError(side)
     if layout not in ("limb", "gemm"):
         raise ValueError(f"layout must be 'limb' or 'gemm', got {layout!r}")
+    _refuse_f64("limb_extract", words)
     if not _route(words[0]):
         return limb_extract_plain(words, L, side, layout)
     from .build import library
@@ -781,6 +794,7 @@ def _plmap_launch(fn, ops, nws, name):
 
 def plmap_add(x, d):
     """X + dX as one kernel; see :func:`plmap_add_plain`."""
+    _refuse_f64("plmap_add", x, d)
     if not _route(x[0]):
         return plmap_add_plain(x, d)
     out = _plmap_launch("add", [x, d], [len(x), len(x)], "plmap_add")
@@ -790,6 +804,7 @@ def plmap_add(x, d):
 
 def plmap_axpy(x, d, a):
     """X + alpha dX as one kernel; see :func:`plmap_axpy_plain`."""
+    _refuse_f64("plmap_axpy", x, d, a)
     if not _route(x[0]):
         return plmap_axpy_plain(x, d, a)
     out = _plmap_launch("axpy", [x, d, a], [len(x), len(x), 3], "plmap_axpy")
@@ -800,6 +815,8 @@ def plmap_axpy(x, d, a):
 def plmap_residual(mu, mask, xy, dxdy=None):
     """mask (mu I - XY [- dX dY]) as one kernel; see
     :func:`plmap_residual_plain`."""
+    _refuse_f64("plmap_residual", mu, (mask,), xy,
+                () if dxdy is None else dxdy)
     if not _route(xy[0]):
         return plmap_residual_plain(mu, mask, xy, dxdy)
     nw = len(xy)
@@ -817,6 +834,7 @@ def plmap_residual(mu, mask, xy, dxdy=None):
 
 def chol_batched(a):
     """Batched expansion Cholesky; see :func:`chol_plain`."""
+    _refuse_f64("chol_batched", a)
     if not _route(a[0]):
         return chol_plain(a)
     from .build import library
@@ -839,6 +857,7 @@ def tri_solve_batched(l, b, trans=False):
     """Batched triangular solve with the lower factor; see
     :func:`tri_solve_plain`. The transposed form's kernel reduces the
     halving tree by the schedule of :func:`tree_table`."""
+    _refuse_f64("tri_solve_batched", l, b)
     if not _route(l[0]):
         return tri_solve_plain(l, b, trans)
     from .build import library

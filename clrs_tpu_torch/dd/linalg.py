@@ -1,22 +1,35 @@
-"""Expansion linear algebra on torch tensors (port of the f32 half of
-``clrs_tpu/dd/linalg.py``).
+"""Expansion linear algebra on torch tensors (port of
+``clrs_tpu/dd/linalg.py``), on f32 or f64 words.
 
-Values are tuples of nw float32 tensors. GEMMs go through the exact limb
-GEMM (:func:`.limb_gemm.fx_matmul`); the batched factorizations
-``b_cholesky``/``b_solve_tril``/``b_solve_tril_t`` call the kernel wrappers
-of :mod:`.kernels` (the CUDA kernels for CUDA tensors, their plain
-versions for CPU tensors). From n >= 96 they take the blocked
-right-looking forms: the row-sequential recurrences run only on nb = 64
-diagonal blocks, the trailing updates as expansion GEMMs.
+Values are tuples of nw float32 or float64 tensors; every function
+dispatches on the word dtype, as the JAX package's do:
+
+- f32 words: GEMMs go through the exact limb GEMM
+  (:func:`.limb_gemm.fx_matmul`), and the batched factorizations
+  ``b_cholesky``/``b_solve_tril``/``b_solve_tril_t`` call the kernel
+  wrappers of :mod:`.kernels` (the CUDA kernels for CUDA tensors, their
+  plain versions for CPU tensors);
+- f64 words: GEMMs go through the slice GEMM
+  (:func:`.slice_gemm.slice_matmul`, one f64 GEMM each), and the
+  factorizations are the JAX package's XLA loops (``dd_cholesky``,
+  ``dd_solve_tril``, ``dd_solve_triu``, clrs_tpu/dd/linalg.py:218-318)
+  batched over the leading axis, in PyTorch ops: the JAX package has no
+  Pallas kernel on this path.
+
+From n >= 96 both take the blocked right-looking forms: the
+row-sequential recurrences run only on nb = 64 diagonal blocks, the
+trailing updates as expansion GEMMs.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import f64ops as F
 from . import kernels as K
+from .arith import dd_add, dd_div, dd_mul, dd_sub, is_f64
 from .limb_gemm import fx_matmul
-from .ops import exp_add, exp_mul, exp_sub
+from .slice_gemm import slice_matmul
 
 __all__ = ["dd_zeros", "dd_eye", "dd_transpose", "dd_sum", "dd_dot",
            "dd_max_abs", "dd_matmul", "bmm", "dd_symmetrize", "b_cholesky",
@@ -24,13 +37,13 @@ __all__ = ["dd_zeros", "dd_eye", "dd_transpose", "dd_sum", "dd_dot",
            "s_cholesky", "s_solve_tril", "s_solve_tril_t", "s_solve_cholesky"]
 
 
-def dd_zeros(shape, nw, device):
-    z = torch.zeros(shape, dtype=torch.float32, device=device)
+def dd_zeros(shape, nw, device, dtype=torch.float32):
+    z = torch.zeros(shape, dtype=dtype, device=device)
     return (z,) * nw
 
 
-def dd_eye(n, nw, device):
-    e = torch.eye(n, dtype=torch.float32, device=device)
+def dd_eye(n, nw, device, dtype=torch.float32):
+    e = torch.eye(n, dtype=dtype, device=device)
     return (e,) + (torch.zeros_like(e),) * (nw - 1)
 
 
@@ -48,7 +61,7 @@ def dd_sum(x, axis):
         half = (n + 1) // 2
         a = tuple(c[:n // 2] for c in ws)
         b = tuple(c[half:half + n // 2] for c in ws)
-        s = exp_add(a, b)
+        s = dd_add(a, b)
         if n % 2 == 1:
             s = tuple(torch.cat([sc, c[n // 2:half]], dim=0)
                       for sc, c in zip(s, ws))
@@ -63,7 +76,7 @@ def dd_sum(x, axis):
 
 def dd_dot(x, y):
     """Expansion trace inner product sum(x * y) over all elements."""
-    p = exp_mul(x, y)
+    p = dd_mul(x, y)
     return dd_sum(tuple(c.reshape(-1) for c in p), axis=0)
 
 
@@ -79,18 +92,21 @@ def dd_max_abs(x):
 
 
 def bmm(a, b):
-    """Batched expansion GEMM [B, m, k] @ [B, k, n]."""
+    """Batched expansion GEMM [B, m, k] @ [B, k, n]: the limb GEMM on f32
+    words, the slice GEMM on f64 words."""
+    if is_f64(a):
+        return slice_matmul(a, b)
     return fx_matmul(a, b)
 
 
 def dd_matmul(a, b):
     """Unbatched expansion GEMM [m, k] @ [k, n]."""
-    out = fx_matmul(tuple(c[None] for c in a), tuple(c[None] for c in b))
+    out = bmm(tuple(c[None] for c in a), tuple(c[None] for c in b))
     return tuple(c[0] for c in out)
 
 
 def dd_symmetrize(x):
-    s = exp_add(x, dd_transpose(x))
+    s = dd_add(x, dd_transpose(x))
     return tuple(0.5 * c for c in s)            # exact scaling
 
 
@@ -133,7 +149,7 @@ def _b_cholesky_blocked(a):
             Pn = dd_transpose(Pt)
             _set(out, Pn, k1, n, k0, k1)
             upd = bmm(tuple(c.contiguous() for c in Pn), Pt)
-            A22 = exp_sub(_sub(A, k1, n, k1, n), upd)
+            A22 = dd_sub(_sub(A, k1, n, k1, n), upd)
             _set(A, A22, k1, n, k1, n)
     return tuple(out), ok
 
@@ -143,12 +159,12 @@ def _b_solve_tril_blocked(l, b):
     nw = len(l)
     Lb, n, _ = l[0].shape
     m = b[0].shape[2]
-    x = [torch.zeros((Lb, n, m), dtype=torch.float32, device=l[0].device)
+    x = [torch.zeros((Lb, n, m), dtype=l[0].dtype, device=l[0].device)
          for _ in range(nw)]
     for (k0, k1) in _blk_ranges(n):
         rhs = _sub(b, k0, k1, 0, m)
         if k0 > 0:
-            rhs = exp_sub(rhs, bmm(_sub(l, k0, k1, 0, k0),
+            rhs = dd_sub(rhs, bmm(_sub(l, k0, k1, 0, k0),
                                    _sub(x, 0, k0, 0, m)))
         xk = b_solve_tril(_sub(l, k0, k1, k0, k1), rhs)
         _set(x, xk, k0, k1, 0, m)
@@ -161,13 +177,13 @@ def _b_solve_tril_t_blocked(l, b):
     nw = len(l)
     Lb, n, _ = l[0].shape
     m = b[0].shape[2]
-    x = [torch.zeros((Lb, n, m), dtype=torch.float32, device=l[0].device)
+    x = [torch.zeros((Lb, n, m), dtype=l[0].dtype, device=l[0].device)
          for _ in range(nw)]
     for (k0, k1) in reversed(_blk_ranges(n)):
         rhs = _sub(b, k0, k1, 0, m)
         if k1 < n:
             Lcol = _sub(l, k1, n, k0, k1)
-            rhs = exp_sub(rhs, bmm(dd_transpose(Lcol),
+            rhs = dd_sub(rhs, bmm(dd_transpose(Lcol),
                                    _sub(x, k1, n, 0, m)))
         xk = b_solve_tril_t(_sub(l, k0, k1, k0, k1), rhs)
         _set(x, xk, k0, k1, 0, m)
@@ -178,6 +194,95 @@ def _contig(x):
     return tuple(c.contiguous() for c in x)
 
 
+# ---------------------------------------------------------------------------
+# the f64 factorizations: clrs_tpu/dd/linalg.py's dd_cholesky, _diag_recip,
+# dd_solve_tril and dd_solve_triu with the [B] batch written out (the
+# reference runs them under jax.vmap); every op is elementwise across the
+# batch, so a member's words equal its own unbatched run
+# ---------------------------------------------------------------------------
+
+def _chol_f64(a):
+    """Row-sequential Cholesky of [B, n, n] f64 words -> (L, ok [B]).
+
+    Per pivot j (clrs_tpu/dd/linalg.py:218-263): ok &= d0 > 0, a failed
+    pivot is replaced by 1, one inverse square root rs serves the pivot
+    (d rs) and the column (col rs), and the trailing matrix takes the
+    rank-1 update. The update is computed on the trailing block only: the
+    reference's mask leaves every other entry as it was, and the entries
+    above the diagonal it does update are never read into the factor."""
+    nw = len(a)
+    Bt, n, _ = a[0].shape
+    dev, dt = a[0].device, a[0].dtype
+    ws = [c.clone() for c in a]
+    ok = torch.ones((Bt,), dtype=torch.bool, device=dev)
+    one = (torch.ones((), dtype=dt, device=dev),) + \
+        (torch.zeros((), dtype=dt, device=dev),) * (nw - 1)
+    for j in range(n):
+        d = tuple(c[:, j, j] for c in ws)
+        pos = d[0] > 0
+        ok = ok & pos
+        d_safe = F.dd_where(pos, d, one)
+        rs = F.dd_rsqrt(d_safe)
+        rt = dd_mul(d_safe, rs)
+        coll = dd_mul(tuple(c[:, j + 1:, j] for c in ws),
+                      tuple(r[:, None] for r in rs))
+        if j + 1 < n:
+            upd = dd_mul(tuple(c[:, :, None] for c in coll),
+                         tuple(c[:, None, :] for c in coll))
+            u = dd_sub(tuple(c[:, j + 1:, j + 1:] for c in ws), upd)
+            for c, uc in zip(ws, u):
+                c[:, j + 1:, j + 1:] = uc
+        for c, cc, rc in zip(ws, coll, rt):
+            c[:, :j, j] = 0.0
+            c[:, j, j] = rc
+            c[:, j + 1:, j] = cc
+    tril = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev))
+    return tuple(torch.where(tril, c, 0.0) for c in ws), ok
+
+
+def _diag_recip(m):
+    """Reciprocals of the diagonals of [B, n, n] words, one division for
+    all rows (clrs_tpu/dd/linalg.py:265-273)."""
+    diag = tuple(torch.diagonal(c, dim1=1, dim2=2) for c in m)
+    one = (torch.ones_like(diag[0]),) + tuple(torch.zeros_like(c)
+                                              for c in diag[1:])
+    return dd_div(one, diag)
+
+
+def _solve_rows(t, b, order, before):
+    """X with T X = B for a triangular [B, n, n] ``t``, one row i per step
+    in ``order`` (clrs_tpu/dd/linalg.py:275-318): x_i = (b_i - sum_k
+    t_ik x_k) / t_ii over the k with ``before(k, i)``, the masked
+    products summed by the full-length tree."""
+    n = t[0].shape[-1]
+    idx = torch.arange(n, device=t[0].device)
+    dinv = _diag_recip(t)
+    x = [torch.zeros_like(c) for c in b]
+    for i in order:
+        mask = before(idx, i).to(t[0].dtype)[:, None]
+        row = tuple(c[:, i, :, None] * mask for c in t)
+        s = dd_sum(dd_mul(row, tuple(x)), axis=1)
+        rhs = dd_sub(tuple(c[:, i, :] for c in b), s)
+        xi = dd_mul(rhs, tuple(c[:, i, None] for c in dinv))
+        for xc, xic in zip(x, xi):
+            xc[:, i, :] = xic
+    return tuple(x)
+
+
+def _solve_tril_f64(l, b):
+    """L X = B by forward substitution (dd_solve_tril, batched)."""
+    n = l[0].shape[-1]
+    return _solve_rows(l, b, range(n), lambda idx, i: idx < i)
+
+
+def _solve_tril_t_f64(l, b):
+    """L^T X = B by backward substitution on U = L^T (dd_solve_triu of
+    dd_transpose(L), batched)."""
+    n = l[0].shape[-1]
+    return _solve_rows(dd_transpose(l), b, range(n - 1, -1, -1),
+                       lambda idx, i: idx > i)
+
+
 def b_cholesky(a):
     """Batched Cholesky of [B, n, n] words -> (lower factor, ok [B])."""
     n = a[0].shape[-1]
@@ -186,6 +291,8 @@ def b_cholesky(a):
                              device=a[0].device)
     if n >= BLK_MIN:
         return _b_cholesky_blocked(a)
+    if is_f64(a):
+        return _chol_f64(a)
     return K.chol_batched(_contig(a))
 
 
@@ -195,6 +302,8 @@ def b_solve_tril(l, b):
         return b
     if l[0].shape[-1] >= BLK_MIN:
         return _b_solve_tril_blocked(l, b)
+    if is_f64(l):
+        return _solve_tril_f64(l, b)
     return K.tri_solve_batched(_contig(l), _contig(b), trans=False)
 
 
@@ -204,6 +313,8 @@ def b_solve_tril_t(l, b):
         return b
     if l[0].shape[-1] >= BLK_MIN:
         return _b_solve_tril_t_blocked(l, b)
+    if is_f64(l):
+        return _solve_tril_t_f64(l, b)
     return K.tri_solve_batched(_contig(l), _contig(b), trans=True)
 
 

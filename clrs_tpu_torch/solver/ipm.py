@@ -1,14 +1,15 @@
-"""Host-side IPM loop of the port (``clrs_tpu/solver/ipm.py`` on the f32
-substrate): chunks of ``sync_every`` iterations through
-:func:`.step.make_run_chunk`, whose steps replay captured CUDA graphs on
-the card and run eagerly on the CPU.
+"""Host-side IPM loop of the port (``clrs_tpu/solver/ipm.py``): chunks of
+``sync_every`` iterations through :func:`.step.make_run_chunk`, whose
+steps replay captured CUDA graphs on the card and run eagerly on the CPU.
 
 Kwargs and defaults follow the reference (solver.jl:100-128), as do
 termination (:921-950), error codes 0-4, the iteration table,
-checkpointing via SaveSettings and warm starts. The precision ladder is
-the f32 one: nw = 5 words up to prec 106, then ceil(prec / 24) words, at
-most 8 (the f32 exponent floor limits how many non-overlapping words a
-value can carry).
+checkpointing via SaveSettings and warm starts. Two substrates, each with
+its precision ladder: f32 words (the default; :func:`word_count`: nw = 5
+up to prec 106, then ceil(prec / 24), at most 8, since the f32 exponent
+floor limits how many non-overlapping words a value can carry) and f64
+words (:func:`word_count_f64`: 2 up to prec 106, 4 up to 212, then
+ceil(prec / 53), no cap).
 """
 
 from __future__ import annotations
@@ -29,10 +30,11 @@ from ..state import state_to_numpy
 from ..utils.hp import DDScalar
 from .status import (DualFeasible, DualSolution, Feasible, NearOptimal,
                      NotConverged, Optimal, PrimalFeasible, PrimalSolution)
-from .step import (DeviceSDP, _w, initial_state, make_assess,
+from .step import (F32, F64, DeviceSDP, _w, initial_state, make_assess,
                    make_run_chunk, zero_info)
 
-__all__ = ["solvesdp", "SolverFailure", "SaveSettings", "word_count"]
+__all__ = ["solvesdp", "SolverFailure", "SaveSettings", "word_count",
+           "word_count_f64"]
 
 
 class SolverFailure(Exception):
@@ -68,6 +70,16 @@ def word_count(prec):
     return min(8, max(5, -(-int(prec) // 24)))
 
 
+def word_count_f64(prec):
+    """f64 words for a precision in bits (clrs_tpu/solver/ipm.py:135-140):
+    2 up to 106, 4 up to 212, else ceil(prec/53) with no cap."""
+    if prec is None or prec <= 106:
+        return 2
+    if prec <= 212:
+        return 4
+    return -(-int(prec) // 53)
+
+
 def _to_host(info, **extra):
     """One device->host transfer for all scalar info entries (and any
     ``extra`` device scalars: a chunk's it_done, code and done)."""
@@ -101,8 +113,13 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     errorcode). Without a card, the default raises: nothing falls back to
     the CPU.
 
-    Runs the f32-expansion substrate with nw words (see :func:`word_count`).
-    ``substrate="f64"`` and ``mesh=`` are later slices of the port and
+    ``substrate="f32"`` (the default) runs f32 expansions with nw words
+    (:func:`word_count`): the path of the hand-written kernels.
+    ``substrate="f64"`` runs f64 words (:func:`word_count_f64`), the JAX
+    package's substrate off the TPU, whose f64 the card has as IEEE:
+    slice GEMMs over one f64 GEMM each and PyTorch expansion ops, captured
+    in the same CUDA graphs. Any other substrate raises ValueError;
+    ``substrate=None`` (the reference's pick by platform) and ``mesh=``
     raise NotImplementedError.
 
     ``sync_every`` (default 1) iterations run as one chunk of
@@ -115,8 +132,12 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     committed an iteration, with the number of iterations committed so far
     and the host copy of the last committed iteration's info (with
     ``sync_every=1``: after every committed iteration)."""
-    if substrate != "f32":
-        raise NotImplementedError("only substrate='f32' is ported")
+    if substrate is None:
+        raise NotImplementedError("substrate=None (a pick by platform) is "
+                                  "not ported; pass 'f32' or 'f64'")
+    if substrate not in ("f32", "f64"):
+        raise ValueError(f"substrate must be 'f32' or 'f64', got "
+                         f"{substrate!r}")
     if mesh is not None:
         raise NotImplementedError("mesh= (sharded solves) is not ported")
     dev = resolve_device(device)
@@ -139,7 +160,10 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     sync_every = int(sync_every)
     if sync_every < 1:
         raise ValueError(f"sync_every must be at least 1, got {sync_every}")
-    ds = DeviceSDP(sdp, nw=word_count(prec), device=dev)
+    if substrate == "f64":
+        ds = DeviceSDP(sdp, nw=word_count_f64(prec), device=dev, dtype=F64)
+    else:
+        ds = DeviceSDP(sdp, nw=word_count(prec), device=dev, dtype=F32)
     run_chunk = make_run_chunk(
         ds, duality_gap_threshold=duality_gap_threshold,
         need_dual_feasible=need_dual_feasible,
@@ -324,8 +348,15 @@ def _dd_scalar_array(hi, lo):
 
 
 def _two(ws):
-    """nw f32 word arrays -> (hi, lo) float64, accumulated with host
-    double-word adds so the full ~106-bit content survives."""
+    """nw word arrays -> (hi, lo) float64 (clrs_tpu/solver/ipm.py:410-430).
+    f64 words decrease by at least 2^-53 per position, so the tail summed
+    into lo loses nothing a double word holds; f32 words are accumulated
+    with host double-word adds so the full ~106-bit content survives."""
+    if np.asarray(ws[0]).dtype == np.float64:
+        lo = np.asarray(ws[1], dtype=np.float64).copy()
+        for w in ws[2:]:
+            lo = lo + np.asarray(w, dtype=np.float64)
+        return np.asarray(ws[0], dtype=np.float64), lo
     h = np.asarray(ws[0], dtype=np.float64)
     l = np.zeros_like(h)
     for w in ws[1:]:
@@ -435,7 +466,8 @@ def _warm_start(ds, sdp, state, dualsol: DualSolution, primalsol: PrimalSolution
         return (hi, lo)
 
     def pad(ws):
-        return _w(tuple(np.asarray(w) for w in ws), ds.nw, ds.device)
+        return _w(tuple(np.asarray(w) for w in ws), ds.nw, ds.device,
+                  ds.dtype)
 
     def group_classes(dcl, mv):
         arrs = []

@@ -1,32 +1,41 @@
-"""One Mehrotra predictor-corrector IPM iteration on the f32-expansion
-substrate (port of ``clrs_tpu/solver/step.py``).
+"""One Mehrotra predictor-corrector IPM iteration (port of
+``clrs_tpu/solver/step.py``), on f32-expansion or f64 words.
 
 The structure is the JAX package's: PSD blocks are grouped into size
 classes per cluster and every per-block operation runs once per class over
 a leading [L] batch axis; 1x1 dense blocks form a per-cluster scalar pack;
 padding is inert (padded diagonal entries of X/Y pinned at 1, residuals
-masked). Every value is an nw-word f32 expansion (default nw = 5, ~106
-bits). GEMMs are exact int8-limb products
-(:func:`clrs_tpu_torch.dd.limb_gemm.fx_matmul`), factorizations and
-triangular solves go through the kernel wrappers of
-:mod:`clrs_tpu_torch.dd.kernels`, and the step-length bound takes the
-lowest eigenvalue from float64 ``torch.linalg.eigvalsh`` with
-``eig_safety`` (the JAX package's off-TPU route; the card's f64 is IEEE).
+masked). Every value is an nw-word expansion of the DeviceSDP's word
+dtype, and every op dispatches on it (:mod:`clrs_tpu_torch.dd.arith`):
+
+- f32 words (default nw = 5, ~106 bits), the route the JAX package takes
+  on the TPU: GEMMs are exact int8-limb products
+  (:func:`clrs_tpu_torch.dd.limb_gemm.fx_matmul`, routed as there by
+  :func:`clrs_tpu_torch.dd.limb_gemm.gemm_route`), factorizations and
+  triangular solves go through the kernel wrappers of
+  :mod:`clrs_tpu_torch.dd.kernels`, and the three per-class elementwise
+  chains of ``pl_map`` (the residual R, the corrector sum X + dX and the
+  state update X + alpha dX) run as one kernel each (``plmap_*``);
+  ``plmap=False`` gives the JAX ``_USE_PLMAP=False`` form of plain
+  expansion ops instead;
+- f64 words (nw = 2, 4, ...), the route the JAX package takes off the
+  TPU: GEMMs are slice GEMMs (:mod:`clrs_tpu_torch.dd.slice_gemm`), the
+  factorizations the batched f64 loops of :mod:`clrs_tpu_torch.dd.linalg`,
+  and the three chains plain expansion ops (the JAX package gates
+  ``pl_map`` on f32 words).
+
+The step-length bound takes the lowest eigenvalue from float64
+``torch.linalg.eigvalsh`` with ``eig_safety`` (the JAX package's off-TPU
+route; the card's f64 is IEEE). The scalar-pack parts stay plain ops, as
+in the JAX package.
 
 A step is a Python function over device tensors, split at its
 eigensolver into a head and a tail (:func:`make_step_parts`);
 :func:`make_step_body` runs them eagerly, and on the card :func:`make_step`
 and :func:`make_run_chunk` replay them from CUDA graphs
 (:mod:`.graph`), the counterpart of the JAX package's ``jax.jit`` and
-``lax.while_loop``. The step takes the route the JAX package takes on the
-TPU: every GEMM routes as there
-(:func:`clrs_tpu_torch.dd.limb_gemm.gemm_route`), and the three
-per-class elementwise chains of ``pl_map`` (the residual R, the
-corrector sum X + dX and the state update X + alpha dX) run as one kernel
-each (``plmap_*`` in :mod:`clrs_tpu_torch.dd.kernels`); ``plmap=False``
-gives the JAX ``_USE_PLMAP=False`` form of plain expansion ops instead. The
-scalar-pack parts stay plain ops, as in the JAX package. Not ported here:
-the row-sharded big-cluster branches.
+``lax.while_loop``, on either substrate. Not ported here: the
+row-sharded big-cluster branches.
 """
 
 from __future__ import annotations
@@ -41,12 +50,8 @@ from ..compile.sdp import ClusteredLowRankSDP
 from ..dd import core as host_core
 from ..dd import kernels as dk
 from ..dd import linalg as dl
+from ..dd.arith import dd_add, dd_div, dd_mul, dd_neg, dd_sub
 from ..dd.limb_gemm import fx_matmul, host_precompute
-from ..dd.ops import exp_add as dd_add
-from ..dd.ops import exp_div as dd_div
-from ..dd.ops import exp_mul as dd_mul
-from ..dd.ops import exp_neg as dd_neg
-from ..dd.ops import exp_sub as dd_sub
 from ..device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["DeviceSDP", "make_step_parts", "make_step_body", "make_step",
@@ -57,10 +62,17 @@ F32 = torch.float32
 F64 = torch.float64
 
 
-def _w(a, nw, device):
-    """Host multi-word tuple (f64 words) -> nw f32 words on ``device``: the
-    double-word value is re-decomposed on the host (IEEE f64) into nw
-    non-overlapping f32 words (clrs_tpu/solver/step.py:75-95)."""
+def _w(a, nw, device, dtype=F32):
+    """Host multi-word tuple (f64 words) -> nw words of ``dtype`` on
+    ``device`` (clrs_tpu/solver/step.py:75-95). f32: the double-word value
+    is re-decomposed on the host (IEEE f64) into nw non-overlapping f32
+    words. f64: the first nw words as they are, zero words after them (an
+    exact embed)."""
+    if dtype == F64:
+        ws = tuple(torch.from_numpy(np.array(c, dtype=np.float64)).to(device)
+                   for c in a[:nw])
+        return ws + tuple(torch.zeros_like(ws[0])
+                          for _ in range(nw - len(ws)))
     h = np.asarray(a[0], dtype=np.float64)
     l = np.asarray(a[1], dtype=np.float64) if len(a) > 1 else np.zeros_like(h)
     words = []
@@ -76,9 +88,12 @@ def _scalar(v, nw):
     return (v,) + (torch.zeros_like(v),) * (nw - 1)
 
 
-def _scalar_split(v, nw):
-    """f64 tensor -> nw-word f32 expansion: up to three words by successive
-    rounding, so the full f64 value enters the expansion arithmetic."""
+def _scalar_split(v, nw, dtype=F32):
+    """f64 tensor -> nw-word expansion of ``dtype``: f32 words take up to
+    three words by successive rounding, so the full f64 value enters the
+    expansion arithmetic; f64 words take v as word 0."""
+    if dtype == F64:
+        return (v,) + (torch.zeros_like(v),) * (nw - 1)
     words = []
     r = v
     for _ in range(min(nw, 3)):
@@ -177,6 +192,7 @@ class _DevCluster:
     row_shard: bool = False      # row-panel sharding: not ported
     nw: int = 5
     device: Any = None
+    dtype: Any = F32
     layout: List[List[Tuple[int, int]]] = None
 
 
@@ -215,20 +231,26 @@ _SCHUR_T1_BATCH_BUDGET = 2 ** 22
 
 
 class DeviceSDP:
-    """Device-resident constants of a compiled SDP as nw-word f32
-    expansions on ``device`` (clrs_tpu/solver/step.py:286-621 with
-    ``dtype=float32`` and no mesh)."""
+    """Device-resident constants of a compiled SDP as nw-word expansions of
+    ``dtype`` on ``device`` (clrs_tpu/solver/step.py:286-621 with no
+    mesh): f32 words (the substrate of the kernels, with the limb forms of
+    the constant GEMM operands precomputed) or f64 words (the IEEE
+    substrate, no precompute)."""
 
     def __init__(self, sdp: ClusteredLowRankSDP, nw: int = 5,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, dtype=F32):
+        if dtype not in (F32, F64):
+            raise ValueError(f"expansion words are float32 or float64, "
+                             f"got {dtype}")
         self.nw = nw
+        self.dtype = dtype
         self.device = dev = resolve_device(device)
-        _dd = lambda a: _w(a, nw, dev)  # noqa: E731
+        _dd = lambda a: _w(a, nw, dev, dtype)  # noqa: E731
         _t = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
         self.maximize = sdp.maximize
         self.sign = 1.0 if sdp.maximize else -1.0
         self.constant = _w((np.float64(sdp.constant.hi),
-                            np.float64(sdp.constant.lo)), nw, dev)
+                            np.float64(sdp.constant.lo)), nw, dev, dtype)
         self.b = _dd(sdp.b)
         self.nfree = sdp.nfree
 
@@ -330,8 +352,8 @@ class DeviceSDP:
                 common = dict(
                     kind=k0["kind"], L=J * Lc, Lc=Lc, n=n, members=members,
                     C=_dd(cat("C")),
-                    maskd=_t(cat("maskd", words=False)).to(F32),
-                    maskdiag=_t(cat("maskdiag", words=False)).to(F32))
+                    maskd=_t(cat("maskd", words=False)).to(dtype),
+                    maskdiag=_t(cat("maskdiag", words=False)).to(dtype))
                 if k0["kind"] == "lowrank":
                     li = cat("li", words=False).astype(np.int32)
                     ri = cat("ri", words=False).astype(np.int32)
@@ -359,7 +381,7 @@ class DeviceSDP:
                     common.update(
                         V=_dd(Vw), lam=_dd(lamw),
                         li=_t(li).long(), ri=_t(ri).long(),
-                        tmask=_t(tm).to(F32),
+                        tmask=_t(tm).to(dtype),
                         Ul=_dd(tuple(Ul)), Ur=_dd(tuple(Ur)),
                         Ulw=_dd(Ulww), Urw=_dd(Urww),
                         use_pairs=(J * Lc) * (P * T) ** 2
@@ -381,7 +403,7 @@ class DeviceSDP:
             dc = _DevCluster(J=J, nrows=P, members_j=list(js),
                              c=_dd(stackj("c")), B=_dd(stackj("B")),
                              classes=classes, nw=nw, device=dev,
-                             layout=layout)
+                             dtype=dtype, layout=layout)
             scs = [protos[j]["scalars"] for j in js]
             if scs[0] is not None:
                 def scat(key, words=True):
@@ -395,7 +417,7 @@ class DeviceSDP:
 
                 dc.sa = _dd(scat("a"))
                 dc.sC = _dd(scat("C"))
-                dc.smask = _t(scat("mask", words=False)).to(F32)
+                dc.smask = _t(scat("mask", words=False)).to(dtype)
                 dc.s_nb = scs[0].nblocks
                 dc.s_nreal = sum(sc.nreal for sc in scs)
             self.clusters.append(dc)
@@ -404,7 +426,8 @@ class DeviceSDP:
             + sum(cl.s_nreal for cl in self.clusters)
         self.total_rows = sum(len(cl.members_j) * cl.nrows
                               for cl in self.clusters)
-        self._precompute_limb_forms()
+        if dtype == F32:
+            self._precompute_limb_forms()
 
     def _precompute_limb_forms(self):
         """Host-extract the limb forms of the constant GEMM operands (V
@@ -464,18 +487,18 @@ class DeviceSDP:
 
 def initial_state(ds: DeviceSDP, omega_p: float, omega_d: float):
     """x=0, X=omega_p*I, y=0, Y=omega_d*I; padded diagonal entries at 1."""
-    nw, dev = ds.nw, ds.device
+    nw, dev, dt = ds.nw, ds.device, ds.dtype
 
     def eyes(k, omega):
         dv = omega * k.maskdiag + (1.0 - k.maskdiag)
-        w0 = torch.eye(k.n, dtype=F32, device=dev) * dv[:, None, :]
+        w0 = torch.eye(k.n, dtype=dt, device=dev) * dv[:, None, :]
         return (w0,) + tuple(torch.zeros_like(w0) for _ in range(nw - 1))
 
     def ones(shape, v):
-        return torch.full(shape, float(v), dtype=F32, device=dev)
+        return torch.full(shape, float(v), dtype=dt, device=dev)
 
-    x = [dl.dd_zeros((cl.J, cl.nrows), nw, dev) for cl in ds.clusters]
-    y = dl.dd_zeros((ds.nfree,), nw, dev)
+    x = [dl.dd_zeros((cl.J, cl.nrows), nw, dev, dt) for cl in ds.clusters]
+    y = dl.dd_zeros((ds.nfree,), nw, dev, dt)
     X = [[eyes(k, omega_p) for k in cl.classes] for cl in ds.clusters]
     Y = [[eyes(k, omega_d) for k in cl.classes] for cl in ds.clusters]
     Xs = [_scalar(ones((cl.J, cl.s_nb), omega_p), nw) for cl in ds.clusters]
@@ -525,7 +548,7 @@ def _gather_b(PM, li, ri):
 def _trace_A_cluster(cl: _DevCluster, Zs, Zsc, panels=None):
     """[<A_p, Z>]_p -> [J, P] words for all rows of a cluster group."""
     J, P = cl.J, cl.nrows
-    tot = dl.dd_zeros((J, P), cl.nw, cl.device)
+    tot = dl.dd_zeros((J, P), cl.nw, cl.device, cl.dtype)
     for ki, (k, Z) in enumerate(zip(cl.classes, Zs)):
         if k.kind == "lowrank":
             L, P_, T = k.li.shape
@@ -582,14 +605,14 @@ def _weighted_A_cluster(cl: _DevCluster, a):
         r = _bmm(cl.sa, tuple(c[:, :, None] for c in a))
         out_s = tuple(c[:, :, 0] for c in r)
     else:
-        out_s = dl.dd_zeros((cl.J, 0), cl.nw, cl.device)
+        out_s = dl.dd_zeros((cl.J, 0), cl.nw, cl.device, cl.dtype)
     return out, out_s
 
 
 def _schur_cluster(cl: _DevCluster, Xinvs, Ys, Xinv_s, Y_s, panels=None):
     """S^j (upper triangle mirrored), solver.jl:1062-1226."""
     J, P = cl.J, cl.nrows
-    S = dl.dd_zeros((J, P, P), cl.nw, cl.device)
+    S = dl.dd_zeros((J, P, P), cl.nw, cl.device, cl.dtype)
     for ki, (k, Xinv, Y) in enumerate(zip(cl.classes, Xinvs, Ys)):
         if k.kind == "lowrank":
             L, P_, T = k.li.shape
@@ -653,7 +676,7 @@ def _schur_cluster(cl: _DevCluster, Xinvs, Ys, Xinv_s, Y_s, panels=None):
 
 
 def _dot_state(ds, A, B):
-    tot = _scalar(torch.zeros((), dtype=F32, device=ds.device), ds.nw)
+    tot = _scalar(torch.zeros((), dtype=ds.dtype, device=ds.device), ds.nw)
     for j, cl in enumerate(ds.clusters):
         for k, Xb, Yb in zip(cl.classes, A["X"][j], B["Y"][j]):
             tot = dd_add(tot, dl.dd_dot(_dd_scale(Xb, k.maskd), Yb))
@@ -689,7 +712,8 @@ def _residuals(ds: DeviceSDP, state, panelsY=None):
                         _dd_scale(cl.sC, ds.sign))
             Pres_s.append(_dd_scale(Ps, cl.smask))
         else:
-            Pres_s.append(dl.dd_zeros((cl.J, 0), ds.nw, ds.device))
+            Pres_s.append(dl.dd_zeros((cl.J, 0), ds.nw, ds.device,
+                                      ds.dtype))
         yb = tuple(c[None, :, None].expand(cl.J, c.shape[0], 1) for c in y)
         By = _bmm(cl.B, yb)
         d_j = dd_sub(dd_sub(cl.c, tuple(c[:, :, 0] for c in By)),
@@ -708,7 +732,7 @@ def _residuals(ds: DeviceSDP, state, panelsY=None):
 
 def _objectives(ds: DeviceSDP, state):
     x, y = state["x"], state["y"]
-    zero = torch.zeros((), dtype=F32, device=ds.device)
+    zero = torch.zeros((), dtype=ds.dtype, device=ds.device)
     dot_cx = _scalar(zero, ds.nw)
     for j, cl in enumerate(ds.clusters):
         dot_cx = dd_add(dot_cx, dl.dd_dot(cl.c, x[j]))
@@ -813,6 +837,13 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, lows, bads, gamma,
             min_d = torch.minimum(min_d, torch.where(cl.smask > 0, e, inf).min())
             e = _f64sum(dYs[j]) / _f64sum(state["Ys"][j])
             min_p = torch.minimum(min_p, torch.where(cl.smask > 0, e, inf).min())
+    if ds.dtype == F64:
+        # IEEE division, as the reference's: a host float over a tensor is
+        # reciprocal() * float in PyTorch, two roundings. The f32 path
+        # keeps that form (ROADMAP C2)
+        neg = torch.full_like(one, -gamma)
+        return (torch.where(min_d > -gamma, one, neg / min_d),
+                torch.where(min_p > -gamma, one, neg / min_p))
     a_d = torch.where(min_d > -gamma, one, -gamma / min_d)
     a_p = torch.where(min_p > -gamma, one, -gamma / min_p)
     return a_d, a_p
@@ -821,8 +852,9 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, lows, bads, gamma,
 def _axpy_state(state, dx, dy, dX, dY, dXs, dYs, alpha_d, alpha_p,
                 plmap=True):
     nw = len(state["y"])
-    ad = _scalar_split(alpha_d, nw)
-    ap = _scalar_split(alpha_p, nw)
+    dt = state["y"][0].dtype
+    ad = _scalar_split(alpha_d, nw, dt)
+    ap = _scalar_split(alpha_p, nw, dt)
     if plmap:
         # the fused form: alpha as three words, padded inside the kernel
         # (clrs_tpu/solver/step.py:1244-1260)
@@ -854,7 +886,8 @@ def make_assess(ds: DeviceSDP):
         dual_error, primal_error, P_error, p_error = _errors(
             ds, Pres, Pres_s, pres, dres)
         d_obj, p_obj, gap = _objectives(ds, state)
-        K = torch.full((), float(ds.total_size), dtype=F32, device=ds.device)
+        K = torch.full((), float(ds.total_size), dtype=ds.dtype,
+                       device=ds.device)
         mu_dd = dd_div(_dot_state(ds, state, state), _scalar(K, ds.nw))
         return {"dual_error": dual_error, "primal_error": primal_error,
                 "P_error": P_error, "p_error": p_error,
@@ -881,14 +914,19 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
     K = float(ds.total_size)
     nw = ds.nw
     dev = ds.device
+    dt = ds.dtype
+    # the chain kernels compute on f32 words; on f64 words the dispatching
+    # ops compute R, the corrector sum and the update, as the JAX package
+    # gates pl_map on f32 words (clrs_tpu/solver/step.py:1219-1229)
+    plmap = plmap and dt == F32
 
     def f64(v):
         return torch.full((), float(v), dtype=F64, device=dev)
 
     # constants, made once so that a step copies nothing to the device
-    Kt = torch.full((), K, dtype=F32, device=dev)
+    Kt = torch.full((), K, dtype=dt, device=dev)
     beta_f, beta_i = f64(beta_feasible), f64(beta_infeasible)
-    bw = _scalar_split(beta_i, nw)
+    bw = _scalar_split(beta_i, nw, dt)
     inf, one = f64(float("inf")), f64(1.0)
 
     def head(state, pd_feas_prev):
@@ -919,7 +957,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                 Lc = tuple(c[:k.L] for c in L2)
                 ly.append(tuple(c[k.L:] for c in L2))
                 eye_b = tuple(c.expand(k.L, k.n, k.n)
-                              for c in dl.dd_eye(k.n, nw, dev))
+                              for c in dl.dd_eye(k.n, nw, dev, dt))
                 inv = dl.b_solve_cholesky(Lc, eye_b)
                 xi.append(dl.dd_symmetrize(inv))
                 lc.append(Lc)
@@ -929,10 +967,10 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             if cl.s_nb:
                 ok = ok & (Xs[j][0] > 0).all()
                 Xinv_s.append(dd_div(_scalar(
-                    torch.ones((cl.J, cl.s_nb), dtype=F32, device=dev), nw),
+                    torch.ones((cl.J, cl.s_nb), dtype=dt, device=dev), nw),
                     Xs[j]))
             else:
-                Xinv_s.append(dl.dd_zeros((cl.J, 0), nw, dev))
+                Xinv_s.append(dl.dd_zeros((cl.J, 0), nw, dev, dt))
 
         # XY products and the pairing panels (shared by Schur and d)
         XYs, panels = [], []
@@ -965,21 +1003,21 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                             dXdY))
                         continue
                     eye_b = tuple(c.expand(k.L, k.n, k.n)
-                                  for c in dl.dd_eye(k.n, nw, dev))
+                                  for c in dl.dd_eye(k.n, nw, dev, dt))
                     Rb = dd_sub(dd_mul(mu_val, eye_b), XYs[j][ki])
                     if dXdY is not None:
                         Rb = dd_sub(Rb, dXdY)
                     Rc.append(_dd_scale(Rb, k.maskd))
                 Rs.append(Rc)
                 if cl.s_nb:
-                    ones = torch.ones((cl.J, cl.s_nb), dtype=F32, device=dev)
+                    ones = torch.ones((cl.J, cl.s_nb), dtype=dt, device=dev)
                     Rb = dd_sub(dd_mul(mu_val, _scalar(ones, nw)),
                                 dd_mul(Xs[j], Ys[j]))
                     if corr is not None:
                         Rb = dd_sub(Rb, dd_mul(corr[2][j], corr[3][j]))
                     Rs_s.append(_dd_scale(Rb, cl.smask))
                 else:
-                    Rs_s.append(dl.dd_zeros((cl.J, 0), nw, dev))
+                    Rs_s.append(dl.dd_zeros((cl.J, 0), nw, dev, dt))
             return Rs, Rs_s
 
         R, R_s = _residual_R(mu_p)
@@ -995,7 +1033,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             ok_S = ok_S & okb
             cholSs.append(L)
             LinvBs.append(dl.b_solve_tril(L, cl.B))
-        Q = dl.dd_zeros((ds.nfree, ds.nfree), nw, dev)
+        Q = dl.dd_zeros((ds.nfree, ds.nfree), nw, dev, dt)
         for LinvB in LinvBs:
             Bf = tuple(c.reshape(c.shape[0] * c.shape[1], c.shape[2])
                        for c in LinvB)
@@ -1025,7 +1063,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                     Zs_s.append(dd_mul(Xinv_s[j], dd_sub(
                         dd_mul(Pres_s[j], Ys[j]), Rcur_s[j])))
                 else:
-                    Zs_s.append(dl.dd_zeros((cl.J, 0), nw, dev))
+                    Zs_s.append(dl.dd_zeros((cl.J, 0), nw, dev, dt))
             # rhs_x = -d - <A_*, Z>
             rhs_x = [dd_sub(dd_neg(dres[j]),
                             _trace_A_cluster(cl, Zs[j], Zs_s[j]))
@@ -1054,7 +1092,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                 wA, wA_s = _weighted_A_cluster(cl, dx[j])
                 dX.append([dd_add(w, Pb) for w, Pb in zip(wA, Pres[j])])
                 dXs.append(dd_add(wA_s, Pres_s[j]) if cl.s_nb
-                           else dl.dd_zeros((cl.J, 0), nw, dev))
+                           else dl.dd_zeros((cl.J, 0), nw, dev, dt))
             # dY = X^-1 (R - dX Y), symmetrized
             dY, dYs = [], []
             for j, cl in enumerate(ds.clusters):
@@ -1066,7 +1104,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                     dYs.append(dd_mul(Xinv_s[j], dd_sub(
                         Rcur_s[j], dd_mul(dXs[j], Ys[j]))))
                 else:
-                    dYs.append(dl.dd_zeros((cl.J, 0), nw, dev))
+                    dYs.append(dl.dd_zeros((cl.J, 0), nw, dev, dt))
             return dx, dy, dX, dY, dXs, dYs
 
         # predictor
@@ -1088,7 +1126,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             pd_feas_now,
             torch.clamp(torch.maximum(beta_f, beta), max=1.0),
             torch.maximum(beta_i, beta))
-        mu_c = dd_mul(mu, _scalar_split(beta_c, nw))
+        mu_c = dd_mul(mu, _scalar_split(beta_c, nw, dt))
 
         # corrector direction
         Rc, Rc_s = _residual_R(mu_c, corr=(dX, dY, dXs, dYs))

@@ -27,13 +27,24 @@ def _map(state, fn):
 
 def state_from_numpy(ds, words_np):
     """A state of numpy word tuples (the JAX package's state after
-    ``np.asarray``) -> the port's nw f32 words on ``ds.device``. f32 words
-    of the port's count are taken as they are; anything else (the JAX f64
-    two-word states) is re-split into nw f32 words by the host rule of
-    ``_w`` (clrs_tpu/solver/step.py:75-95)."""
+    ``np.asarray``) -> the port's words on ``ds.device``.
+
+    An f64 DeviceSDP takes f64 words of its own count word for word (the
+    JAX f64 states, nw 2, 4, 5, ...). An f32 DeviceSDP takes f32 words of
+    its count as they are and re-splits anything else (the JAX f64
+    two-word states) into nw f32 words by the host rule of ``_w``
+    (clrs_tpu/solver/step.py:75-95)."""
 
     def conv(ws):
         ws = tuple(np.asarray(w) for w in ws)
+        if ds.dtype == torch.float64:
+            if len(ws) != ds.nw or any(w.dtype != np.float64 for w in ws):
+                raise ValueError(
+                    f"an f64 DeviceSDP of {ds.nw} words takes f64 states of "
+                    f"{ds.nw} words, got {len(ws)} words of "
+                    f"{ws[0].dtype}")
+            return tuple(torch.from_numpy(np.array(w)).to(ds.device)
+                         for w in ws)
         if len(ws) == ds.nw and all(w.dtype == np.float32 for w in ws):
             return tuple(torch.from_numpy(np.array(w))
                          .to(ds.device) for w in ws)

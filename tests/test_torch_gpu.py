@@ -667,3 +667,144 @@ def test_failing_cholesky_gives_code_1_on_card(capture, cuda, monkeypatch):
                   TS.initial_state(ds, -1.0, 100.0)):
         out = run(state, False, TS.zero_info(None, cuda), 3)
         assert (int(out[3]), int(out[4]), bool(out[5])) == (0, 1, True)
+
+
+# ---------------------------------------------------------------------------
+# the f64 substrate: card against CPU, graphs against eager
+# ---------------------------------------------------------------------------
+
+def _wild_words(rng, shape, nw, positive=False):
+    """nw f64 words: half the elements a normalised expansion, half words
+    of independent magnitudes, all between 1e-150 and 1e150."""
+    mag = lambda: 10.0 ** rng.uniform(-150, 150, shape)  # noqa: E731
+    sign = 1.0 if positive else rng.choice([-1.0, 1.0], shape)
+    ws = [sign * rng.uniform(1, 2, shape) * mag()]
+    wild = rng.random(shape) < 0.5
+    for _ in range(1, nw):
+        tame = ws[-1] * 2.0 ** -rng.integers(53, 60, shape) \
+            * rng.uniform(-1, 1, shape)
+        ws.append(np.where(wild, rng.uniform(-1, 1, shape) * mag(), tame))
+    return ws
+
+
+def _same_nan(a, b):
+    """Same bits, any NaN equal to any NaN."""
+    for x, y in zip(a, b):
+        x, y = x.cpu(), y.cpu()
+        nan = torch.isnan(x)
+        if not torch.equal(nan, torch.isnan(y)):
+            return False
+        if not torch.equal(torch.where(nan, 0.0, x).view(torch.int64),
+                           torch.where(nan, 0.0, y).view(torch.int64)):
+            return False
+    return len(a) == len(b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw", [2, 4, 5])
+def test_f64_ops_card_equal_cpu(nw, cuda):
+    """Every f64 op on the card equals the same op on the CPU bit for bit
+    (CUDA f64 keeps subnormals, so the CPU runs without a flush)."""
+    from clrs_tpu_torch.dd import f64ops as F
+
+    rng = np.random.default_rng(nw)
+    n = 1 << 14
+    x, y = _wild_words(rng, n, nw), _wild_words(rng, n, nw)
+    p = _wild_words(rng, n, nw, positive=True)
+    a = rng.uniform(-3, 3, n) * 10.0 ** rng.uniform(-150, 150, n)
+    ops = {"add": lambda x, y, p, a: F.dd_add(x, y),
+           "mul": lambda x, y, p, a: F.dd_mul(x, y),
+           "div": lambda x, y, p, a: F.dd_div(x, y),
+           "mul_f64": lambda x, y, p, a: F.dd_mul_f64(x, a),
+           "add_f64": lambda x, y, p, a: F.dd_add_f64(x, a),
+           "rsqrt": lambda x, y, p, a: F.dd_rsqrt(p),
+           "sqrt": lambda x, y, p, a: F.dd_sqrt(p),
+           "qd_add": lambda x, y, p, a: F.qd_add(x, y),
+           "qd_mul": lambda x, y, p, a: F.qd_mul(x, y),
+           "max": lambda x, y, p, a: F.dd_max(x, y)}
+    out = {}
+    for dev in ("cpu", cuda):
+        args = (_t(x, dev), _t(y, dev), _t(p, dev),
+                torch.from_numpy(a).to(dev))
+        out[dev] = {k: f(*args) for k, f in ops.items()}
+    for k in ops:
+        assert _same_nan(out["cpu"][k], out[cuda][k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw", [2, 4, 5])
+@pytest.mark.parametrize("k", [1, 22, 192])
+def test_slice_matmul_card_equals_cpu(k, nw, cuda):
+    """The slice GEMM (its one cuBLAS DGEMM exact under the slice budget)
+    on the card equals the CPU's bit for bit, batched, rows and columns
+    of magnitudes between 1e-150 and 1e150."""
+    from clrs_tpu_torch.dd.slice_gemm import slice_matmul
+
+    rng = np.random.default_rng(k + 10 * nw)
+    a = _wild_words(rng, (3, 9, k), nw)
+    b = _wild_words(rng, (3, k, 7), nw)
+    cpu = slice_matmul(_t(a, "cpu"), _t(b, "cpu"))
+    card = slice_matmul(_t(a, cuda), _t(b, cuda))
+    assert _same_nan(cpu, card)
+
+
+@pytest.mark.gpu
+def test_f64_step_on_card_matches_cpu(cuda, monkeypatch):
+    """Two f64 steps of delsarte(3,3) at nw 2: the words agree bit for bit
+    up to the first eigensolver call (its input compared word by word);
+    the info scalars at rel 1e-13 (two f64 eigensolvers)."""
+    sdp = ct.ClusteredLowRankSDP(delsarte(ct, 3))
+    rows, first_eig = {}, {}
+    eig_input = TS._eig_input
+
+    def recording(W2):
+        first_eig.setdefault(W2[0].device.type,
+                             tuple(c.cpu().clone() for c in W2))
+        return eig_input(W2)
+
+    monkeypatch.setattr(TS, "_eig_input", recording)
+    for dev in ("cpu", cuda):
+        ds = TS.DeviceSDP(sdp, nw=2, device=dev, dtype=torch.float64)
+        step = TS.make_step_body(ds, **STEP_KW)
+        state, feas, r = TS.initial_state(ds, 100.0, 100.0), False, []
+        K.reset_counts()
+        for _ in range(2):
+            state, info = step(state, feas)
+            feas = bool(info["pd_feas"])
+            r.append([float(info[k]) for k in ("mu", "d_obj", "p_obj",
+                                               "alpha_d", "alpha_p")])
+        assert all(v == 0 for v in K.counts().values())
+        rows[dev != "cpu"] = r
+    assert _same_nan(first_eig["cpu"], first_eig["cuda"])
+    for a, b in zip(rows[False], rows[True]):
+        assert a == pytest.approx(b, rel=1e-13, abs=1e-18)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw", [2, 5])
+def test_f64_graph_step_equals_eager_step_on_card(nw, cuda):
+    """make_step on f64 words: the graph step's state and info equal the
+    eager step's word for word, two steps of delsarte(3,3); the replays
+    need no host sync."""
+    ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(delsarte(ct, 3)), nw=nw,
+                      device=cuda, dtype=torch.float64)
+    body = TS.make_step_body(ds, **STEP_KW)
+    graph = TS.make_step(ds, **STEP_KW)
+    se, fe = TS.initial_state(ds, 100.0, 100.0), False
+    sg, fg = se, False
+    graph(se, False)                     # capture
+    for _ in range(2):
+        se, ie = body(se, fe)
+        sg, ig = graph(sg, fg)
+        torch.cuda.synchronize()
+        assert _same_tree(se, sg) and _same_tree(ie, ig)
+        fe, fg = ie["pd_feas"], ig["pd_feas"].clone()
+        sg = TS._tree_map(torch.clone, sg)
+    split = graph.buffers["split"]
+    for part in (split.run_head, split.run_tail):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            part()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

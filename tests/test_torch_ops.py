@@ -109,10 +109,10 @@ def test_rsqrt_sqrt_within_seed_tolerance(nw, xla_subnormals):
 
 
 def test_port_imports_no_jax():
-    """`import clrs_tpu_torch` and one CPU IPM step load no JAX module, no
-    clrs_tpu module under its own name, and no module whose file lies in
-    the clrs_tpu/ source directory under any name: the port keeps its own
-    copies of the host layers."""
+    """`import clrs_tpu_torch` and one CPU IPM step on each substrate (f32
+    and f64 words) load no JAX module, no clrs_tpu module under its own
+    name, and no module whose file lies in the clrs_tpu/ source directory
+    under any name: the port keeps its own copies of the host layers."""
     code = r"""
 import sys
 from fractions import Fraction
@@ -128,6 +128,12 @@ step = make_step_body(ds, gamma=0.9, beta_feasible=0.1, beta_infeasible=0.3,
                       dual_error_threshold=1e-12, primal_error_threshold=1e-12)
 state, info = step(initial_state(ds, 10.0, 10.0), False)
 assert bool(info["ok"])
+import torch
+ds = DeviceSDP(sdp, nw=2, device="cpu", dtype=torch.float64)
+step = make_step_body(ds, gamma=0.9, beta_feasible=0.1, beta_infeasible=0.3,
+                      dual_error_threshold=1e-12, primal_error_threshold=1e-12)
+state, info = step(initial_state(ds, 10.0, 10.0), False)
+assert bool(info["ok"]) and state["y"][0].dtype == torch.float64
 jax_src = (Path.cwd() / "clrs_tpu").resolve()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "clrs_tpu" or m.startswith("clrs_tpu."))

@@ -218,8 +218,8 @@ def test_solvesdp_polyopt_on_cpu():
 
 def test_solvesdp_refuses_unported_routes():
     problem = polyopt(ct)
-    with pytest.raises(NotImplementedError):
-        ct.solvesdp(problem, device="cpu", substrate="f64", verbose=False)
+    with pytest.raises(ValueError):
+        ct.solvesdp(problem, device="cpu", substrate="f16", verbose=False)
     with pytest.raises(NotImplementedError):
         ct.solvesdp(problem, device="cpu", mesh=object(), verbose=False)
     with pytest.raises(ValueError):

@@ -33,14 +33,20 @@ def spd_words(B, n, nw, seed):
 @pytest.fixture
 def xla_subnormals():
     """Run the port in XLA:CPU's flush-to-zero mode: XLA:CPU flushes f32
-    subnormals, eager PyTorch keeps them (as the CUDA kernels do), so
-    comparisons of the op sequence with the JAX package flush on both sides.
-    Small tensors: one thread, whose MXCSR this sets."""
+    and f64 subnormals, eager PyTorch keeps them (as the CUDA kernels do),
+    so comparisons of the op sequence with the JAX package flush on both
+    sides. The flush mode is the calling thread's, so the port runs on that
+    one thread meanwhile: a worker thread started now (by ATen or MKL)
+    would inherit the flush mode and keep it for every later test of the
+    process."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     torch.set_flush_denormal(True)
     try:
         yield
     finally:
         torch.set_flush_denormal(False)
+        torch.set_num_threads(threads)
 
 
 def delsarte(api, d):

@@ -1,13 +1,15 @@
 """Profile steady IPM iterations of the PyTorch/CUDA port on one card.
 
 Solves delsarte(3, d) (clrs_tpu_torch.examples, as chip_smoke.py does) from
-omega 100 I, either by the eager step (``--mode eager``:
-make_step_body, every kernel launched by the host) or through the step's
-CUDA graphs (``--mode graph``: make_run_chunk with chunks of one, as
-solvesdp runs by default), each iteration ending in the one host read of
-its info that solvesdp makes (chip_smoke.drive). The first iteration
-warms up (and captures the graphs); the next ``--iters`` are timed on the
-host clock, synchronised, and ``--iters`` more run under torch.profiler.
+omega 100 I on the f32 substrate (nw 5; ``--substrate f64``: f64 words,
+nw 2 unless ``--nw`` says otherwise), either by the eager step
+(``--mode eager``: make_step_body, every kernel launched by the host) or
+through the step's CUDA graphs (``--mode graph``: make_run_chunk with
+chunks of one, as solvesdp runs by default), each iteration ending in the
+one host read of its info that solvesdp makes (chip_smoke.drive). The
+first iteration warms up (and captures the graphs); the next ``--iters``
+are timed on the host clock, synchronised, and ``--iters`` more run under
+torch.profiler.
 Prints one JSON line: wall ms per iteration (unprofiled and profiled),
 device kernels per iteration, device busy ms and share per iteration
 (kernels run on one stream, so their times add), host launch calls per
@@ -23,6 +25,7 @@ a card:
 
     python3 torch_step_profile.py --d 10 --iters 3 --mode graph
     python3 torch_step_profile.py --d 95 --iters 1 --mode eager
+    python3 torch_step_profile.py --d 10 --iters 3 --substrate f64
 
 Run one profile per process: torch.profiler loses device records in a
 process after a session with hundreds of thousands of them.
@@ -45,6 +48,9 @@ def main():
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--mode", choices=("eager", "graph"), default="graph")
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--substrate", choices=("f32", "f64"), default="f32")
+    ap.add_argument("--nw", type=int, default=None,
+                    help="words (default 5 on f32, 2 on f64)")
     args = ap.parse_args()
 
     import torch
@@ -60,7 +66,10 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     N = args.iters
-    ds = device_sdp(delsarte_problem(3, args.d, Fraction(1, 2)))
+    f64 = args.substrate == "f64"
+    nw = args.nw or (2 if f64 else 5)
+    ds = device_sdp(delsarte_problem(3, args.d, Fraction(1, 2)), nw=nw,
+                    dtype=torch.float64 if f64 else torch.float32)
     stats, _, one = drive(ds, args.mode, N)
     K.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -97,7 +106,8 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
     print(json.dumps({
         "card": card, "checkout": str(Path(__file__).resolve().parent),
-        "problem": f"delsarte(3,{args.d})", "mode": args.mode, "iters": N,
+        "problem": f"delsarte(3,{args.d})", "substrate": args.substrate,
+        "nw": nw, "mode": args.mode, "iters": N,
         "wall_ms_per_iteration": stats["wall_ms"],
         "wall_ms_per_iteration_profiled": wall_prof,
         "device_kernels_per_iteration": len(dev) / N,
