@@ -51,7 +51,19 @@ Phases (one line each; any failure exits non-zero):
      words): pdOpt, code 0, objective within 1e-9, gap below 1e-15;
  11. the f64 graphs against the eager f64 step (delsarte(3,10)'s first
      step word for word), and phase 6's rows for f64 at both problems,
-     with one profiled graph iteration each (torch_step_profile.py).
+     with one profiled graph iteration each (torch_step_profile.py);
+ 12. the exact-certificate path: the reference's rounding oracles (GW
+     max-cut 9/4, delsarte_round(8,3,1/2) 240, delsarte over Q(sqrt5) 12
+     and 120, theta(C5) and the POVM through the frontend Model, the
+     three-point bound 10) solved on the card at the f32 default with
+     their reference tests' settings and rounded to their exact values on
+     the host (one line each: code, iterations, solve and rounding
+     seconds, the RREF's native or Python route; every kernel of
+     PATH_3_10 launched, three-point's PATH_3_95, and no plain version);
+     then the SDPA fixture solved on the card, its objective within 1e-12
+     of the CPU solve's; then every kernel against its plain version, bit
+     for bit, at every shape those solves gave its wrapper (recorded on
+     the way to it).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -537,7 +549,7 @@ def _int_mm_ms(A, B):
 
 def compare_kernels():
     """Phase 3: each kernel vs its plain version on the card. Returns the
-    per-kernel records for the JSON summary."""
+    records (a Kernels; phase 12 adds to them) for the JSON summary."""
     import numpy as np
     import torch
 
@@ -865,7 +877,7 @@ def compare_kernels():
                      dict(nw=nw, B=B, n=n, m=m),
                      cost_tri(nw, B, n, m, trans) if t else None,
                      reps=20, plain_reps=1)
-    return ks.recs
+    return ks
 
 
 # kernels each solve must launch: the split route and the chain kernels
@@ -1482,6 +1494,294 @@ def graph_vs_eager(card, problem_3_10, problem_3_95, rows_3_95):
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the exact-certificate path (model -> solve on the card -> round
+# to an exact solution on the host), the reference's rounding oracles, each
+# solved with the settings of its reference test
+# ---------------------------------------------------------------------------
+
+L3 = [[2, -1, -1], [-1, 2, -1], [-1, -1, 2]]
+SDPA_FIXTURE = "tests/fixtures/example.dat-s"
+
+
+class CertParts:
+    """One oracle's solve and rounding: wall seconds of each, the solve's
+    iterations (from solvesdp's callback) and the kernels it launched
+    (counts set to 0 just before, read just after)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.marks = []
+        self.counts = None
+
+    def callback(self, it, info):
+        self.marks.append((it, time.time()))
+
+    def _lap(self, name, fn):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        self.seconds[name] = time.time() - t0
+        return out
+
+    def solve(self, fn):
+        from clrs_tpu_torch.dd import kernels as K
+
+        K.reset_counts()
+        out = self._lap("solve", fn)
+        self.counts = K.counts()
+        return out
+
+    def round(self, fn):
+        return self._lap("round", fn)
+
+    def per_iteration(self):
+        """Seconds per iteration after the first (which captures)."""
+        if len(self.marks) < 2:
+            return float("nan")
+        (i0, t0), (i1, t1) = self.marks[0], self.marks[-1]
+        return (t1 - t0) / max(i1 - i0, 1)
+
+
+def _cert_gw(kw, parts):
+    """GW max-cut of the 3-cycle (tests/test_rounding.py:15): 9/4 exact,
+    X[0,1] = -1/2."""
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.examples import goemans_williamson
+
+    problem, _, ds, ps, code = parts.solve(lambda: goemans_williamson(
+        L3, omega_p=100.0, omega_d=100.0, eps=1e-18, verbose=False,
+        dual_error_threshold=1e-15, primal_error_threshold=1e-15, **kw))
+    ok, esol = parts.round(lambda: ct.exact_solution(problem, ds, ps,
+                                                     verbose=False))
+    v = ct.objvalue(problem, esol)
+    x01 = ct.matrixvar(esol, "X")[0, 1]
+    return code, (ok and v == Fraction(9, 4) and x01 == Fraction(-1, 2),
+                  f"exact {v}, X[0,1] {x01}")
+
+
+def _cert_delsarte(n, d, costheta, want, field, kw, parts):
+    """delsarte_exact solved, then rounded with delsarte_round's monomial
+    basis (tests/test_rounding.py:30, :62, :82)."""
+    from decimal import Decimal
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.examples import delsarte_exact
+
+    if field:
+        FF = ct.NumberField([-5, 0, 1], "z", approx_root=Decimal(5).sqrt())
+        costheta = costheta(FF.gen())
+        g = Decimal(5).sqrt()
+        opts = dict(eps=1e-20, dual_error_threshold=1e-16,
+                    primal_error_threshold=1e-16)
+        settings = ct.RoundingSettings(kernel_errbound=1e-8)
+    else:
+        FF, g = ct.QQ, 1
+        opts = dict(dual_error_threshold=1e-15, primal_error_threshold=1e-15)
+        settings = ct.RoundingSettings()
+    _, problem, ds, ps, code = parts.solve(lambda: delsarte_exact(
+        n, d, costheta, FF=FF, g=g, omega_p=100.0, omega_d=100.0,
+        verbose=False, **opts, **kw))
+    _, x = ct.polynomial_ring("x")
+    ok, esol = parts.round(lambda: ct.exact_solution(
+        problem, ds, ps, FF=FF, g=g, settings=settings,
+        monomial_bases=[[x ** k for k in range(2 * d + 1)]], verbose=False))
+    v = ct.objvalue(problem, esol)
+    return code, (ok and v == want, f"exact {v}")
+
+
+def _cert_model(name, kw, parts):
+    """theta(C5) or the POVM through the frontend Model, find_field and
+    exact_solution (tests/test_frontend.py:18, :32)."""
+    import math
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch import examples
+
+    m = parts.solve(lambda: getattr(examples, name)(maxiterations=250, **kw))
+    v = float(m.objective_value())
+
+    def rnd():
+        FF, g = ct.frontend.find_field(m)
+        return (FF,) + ct.frontend.exact_solution(m, FF=FF, g=g,
+                                                  verbose=False)
+    FF, ok, prob, esol = parts.round(rnd)
+    ev = ct.objvalue(prob, esol)
+    if name == "lovasz_theta_c5":
+        good = abs(v - math.sqrt(5)) < 1e-12 and ev * ev == 5
+    else:
+        d = ev - Fraction(1, 2)
+        good = (abs(v - (0.5 + math.sqrt(2) / 4)) < 1e-12
+                and d * d == Fraction(1, 8))
+    return m.errorcode, (good and ok and FF.degree == 2,
+                         f"value {v!r}, field degree {FF.degree}, exact {ev}")
+
+
+def _cert_three_point(kw, parts):
+    """three_point_spherical_codes(4, 1/6, -1, 4) (tests/test_rounding.py
+    :179): code 0, 10 within 1e-8, exact 10."""
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.examples import three_point_spherical_codes
+
+    problem, _, ds, ps, code = parts.solve(
+        lambda: three_point_spherical_codes(
+            4, Fraction(1, 6), -1, 4, verbose=False, omega_p=1000.0,
+            omega_d=1000.0, duality_gap_threshold=1e-18,
+            dual_error_threshold=1e-15, primal_error_threshold=1e-15, **kw))
+    v = float(ct.objvalue(problem, ps))
+    ok, esol = parts.round(lambda: ct.exact_solution(
+        problem, ds, ps, verbose=False,
+        settings=ct.RoundingSettings(kernel_errbound=1e-8)))
+    ev = ct.objvalue(problem, esol)
+    return code, (code == 0 and abs(v - 10) < 1e-8 and ok and ev == 10,
+                  f"value {v!r}, exact {ev}")
+
+
+CERT_ORACLES = (
+    ("GW max-cut C3", _cert_gw),
+    ("delsarte_round(8,3,1/2)",
+     lambda kw, p: _cert_delsarte(8, 3, Fraction(1, 2), 240, False, kw, p)),
+    ("delsarte Q(sqrt5) (3,2,1/z)",
+     lambda kw, p: _cert_delsarte(3, 2, lambda z: z.inverse(), 12, True, kw,
+                                  p)),
+    ("delsarte Q(sqrt5) (4,9,1/(z-1))",
+     lambda kw, p: _cert_delsarte(4, 9, lambda z: (z - 1).inverse(), 120,
+                                  True, kw, p)),
+    ("theta(C5) Model",
+     lambda kw, p: _cert_model("lovasz_theta_c5", kw, p)),
+    ("POVM Model", lambda kw, p: _cert_model("povm", kw, p)),
+    ("three-point(4,1/6,-1,4)", _cert_three_point),
+)
+# kernels each phase-12 solve must launch: PATH_3_10, and at three-point
+# the fused limb GEMM as well (its Schur pairings exceed the route
+# threshold, as at delsarte(3,95))
+CERT_PATH = {"three-point(4,1/6,-1,4)": PATH_3_95}
+
+
+def certificate_path(card, ks):
+    """Phase 12: each rounding oracle solved on the card at the f32
+    default (through the step's CUDA graphs) and rounded on the host;
+    then the SDPA fixture solved on the card and on the CPU; then every
+    kernel against its plain version at the shapes those solves gave it
+    (into ``ks``, phase 3's records). Fails unless every oracle gives its
+    exact value, each solve launched every kernel of its path and no
+    plain version, the two SDPA objectives agree to 1e-12 and every
+    kernel matches its plain version. Returns {label: the kernels' counts
+    of its solve}."""
+    from pathlib import Path
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.exact import modp
+
+    route = {"native": 0, "python": 0}
+    inner = modp._rref_native
+
+    def counted(a, p):
+        out = inner(a, p)
+        route["native" if out is not None else "python"] += 1
+        return out
+
+    def n_it(parts):
+        return parts.marks[-1][0] if parts.marks else 0
+
+    def oracles():
+        for label, oracle in CERT_ORACLES:
+            route.update(native=0, python=0)
+            parts = CertParts()
+            code, (good, note) = oracle(dict(callback=parts.callback), parts)
+            check_counts(label, parts.counts, CERT_PATH.get(label, PATH_3_10),
+                         n_it(parts))
+            runs[f"certificate {label}"] = parts.counts
+            print(f"{label} [f32]: code {code}, iterations {n_it(parts)}, "
+                  f"solve {parts.seconds['solve']:.2f} s "
+                  f"({parts.per_iteration():.4f} s/iteration after the "
+                  f"first), rounding {parts.seconds['round']:.2f} s, rref "
+                  f"native {route['native']} python {route['python']}; "
+                  f"{note}", flush=True)
+            if not good:
+                fail(f"{label} did not give its exact value: {note}")
+        parts = CertParts()
+        out = parts.solve(lambda: ct.solvesdp(
+            sdpa, callback=parts.callback, **sdpa_kw))
+        check_counts("SDPA example.dat-s", parts.counts, PATH_3_10,
+                     n_it(parts))
+        runs["certificate SDPA"] = parts.counts
+        return parts, out
+
+    print(card, flush=True)
+    runs = {}
+    sdpa = ct.sdpa_sparse_to_problem(
+        str(Path(__file__).resolve().parent / SDPA_FIXTURE))
+    sdpa_kw = dict(omega_p=100., omega_d=100., dual_error_threshold=1e-12,
+                   primal_error_threshold=1e-12, verbose=False)
+    modp._rref_native = counted
+    try:
+        (parts, (_, _, ps, _, code)), seen = recorded(oracles)
+    finally:
+        modp._rref_native = inner
+
+    _, _, ps_cpu, _, code_cpu = ct.solvesdp(sdpa, device="cpu", **sdpa_kw)
+    v, v_cpu = (float(ct.objvalue(sdpa, s)) for s in (ps, ps_cpu))
+    print(f"SDPA example.dat-s: code {code} (CPU {code_cpu}), objective "
+          f"{v!r}, CPU {v_cpu!r}, |diff| {abs(v - v_cpu):.3e}, iterations "
+          f"{n_it(parts)}, solve {parts.seconds['solve']:.2f} s", flush=True)
+    if code != 0 or code_cpu != 0 or not abs(v - v_cpu) <= 1e-12:
+        fail("the SDPA fixture's card solve is not within 1e-12 of its CPU "
+             "solve")
+    compare_path_shapes(ks, seen, runs)
+    return runs
+
+
+def recorded(run):
+    """``run()`` with the calls of every kernel of the path recorded on
+    their way to its wrapper (torch_kernel_timing.py's ``record``; at a
+    graph's capture, so every shape of every solve is seen once). Returns
+    run()'s result and {kernel group: {shape key: calls}}."""
+    import torch_kernel_timing as T
+
+    seen, out = {}, []
+
+    def nest(groups):
+        if not groups:
+            out.append(run())
+            return
+        seen[groups[0]] = T.record(groups[0], lambda: nest(groups[1:]))
+
+    nest(list(T.RECORDED))
+    return out[0], seen
+
+
+def compare_path_shapes(ks, seen, runs):
+    """Each kernel against its plain version on the card, bit for bit, at
+    every shape that phase 12's solves gave its wrapper (``seen``, from
+    :func:`recorded`), on random inputs of that shape
+    (torch_kernel_timing.py's ``inputs``). Fails on any difference and on
+    a kernel that launched in those solves with no shape recorded."""
+    import numpy as np
+
+    import torch_kernel_timing as T
+    from clrs_tpu_torch.dd import kernels as K
+
+    rng = np.random.default_rng(12)
+    me = sys.modules[__name__]
+    names = {}
+    for group, keys in seen.items():
+        for key in sorted(keys, key=repr):
+            name, kernel, plain, args = T.inputs(group, key, rng, me, K)
+            names[name] = names.get(name, 0) + 1
+            ks.check(name, "", kernel, plain, args,
+                     dict(zip(T.FIELDS[group], key), certificate=True))
+    print(f"phase 12 shapes compared with the plain versions: {names}",
+          flush=True)
+    for name in ks.recs:
+        if any(c[name] for c in runs.values()) and not names.get(name):
+            fail(f"{name} launched in phase 12 but no shape of it was "
+                 "recorded")
+
+
 def main():
     import torch
 
@@ -1506,7 +1806,7 @@ def main():
           flush=True)
 
     print("kernels vs plain versions:", flush=True)
-    recs = compare_kernels()
+    ks = compare_kernels()
     torch.cuda.synchronize()
     lap("1-3")
 
@@ -1539,12 +1839,14 @@ def main():
     lap("10")
     graph_vs_eager_f64(card, problem_3_10, problem_3_95)
     lap("11")
-    for name, r in recs.items():
+    runs.update(certificate_path(card, ks))
+    lap("12")
+    for name, r in ks.recs.items():
         r["launches_by_run"] = {k: c[name] for k, c in runs.items()}
         r["launches"] = sum(r["launches_by_run"].values())
 
     print(card, flush=True)
-    print(json.dumps({"kernels": list(recs.values())}), flush=True)
+    print(json.dumps({"kernels": list(ks.recs.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

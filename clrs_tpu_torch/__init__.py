@@ -10,8 +10,13 @@ and the numpy half of ``dd/core.py``). The solver is ported:
 card through hand-written CUDA kernels (:mod:`clrs_tpu_torch.dd.kernels`);
 ``device="cpu"`` runs the kernels' plain PyTorch versions.
 ``substrate="f64"`` runs it on f64 words instead (the JAX package's
-substrate off the TPU: :mod:`clrs_tpu_torch.dd.f64ops` and slice GEMMs). This package
-imports neither JAX nor anything of :mod:`clrs_tpu`.
+substrate off the TPU: :mod:`clrs_tpu_torch.dd.f64ops` and slice GEMMs).
+The exact rounding stack (``exact/``, ``round/``, ``native/``,
+``model/linearsystem.py``, ``model/sdpa.py``) is copied too and runs on
+the host, with its own ``nextprime`` (``exact/primes.py``) in place of
+sympy's; the ``frontend.Model`` solves through the port's ``solvesdp``.
+This package imports neither JAX, nor sympy, nor anything of
+:mod:`clrs_tpu`.
 """
 
 from .model.problem import (Block, Constraint, LowRankMatPol, Maximize,
@@ -37,3 +42,16 @@ from .poly.fekete import approximatefekete, approximatefeketeexact
 from .solver.ipm import SaveSettings, SolverFailure, solvesdp
 
 __version__ = "0.1.0"
+
+# rounding and exact solutions, on the host (clrs_tpu/__init__.py:83-93)
+from .round.rounding import RoundingSettings, exact_solution  # noqa: E402
+from .round.find_field import find_field, to_field, min_poly  # noqa: E402
+from .exact.field import NumberField, QQ, generic_embedding  # noqa: E402
+from .model.sdpa import sdpa_sparse_to_problem  # noqa: E402
+from .model.checks import check_problem, check_sdp  # noqa: E402
+from .model.linearsystem import (  # noqa: E402
+    linearsystem,
+    linearsystem_coefficientmatching,
+    partial_linearsystem,
+)
+from . import frontend  # noqa: E402

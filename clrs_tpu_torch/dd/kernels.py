@@ -209,8 +209,8 @@ def _chain_shape(ops):
     the dims broadcast across all words (a [L, 1, 1] scalar may come
     first)."""
     shapes = [c.shape for op in ops for c in op]
-    dims = torch.broadcast_shapes(*(s[1:] for s in shapes))
-    L = torch.broadcast_shapes(*(s[:1] for s in shapes))
+    dims = O.broadcast_shapes(*(s[1:] for s in shapes))
+    L = O.broadcast_shapes(*(s[:1] for s in shapes))
     return _pad3(tuple(L) + tuple(dims)), tuple(L) + tuple(dims)
 
 

@@ -273,3 +273,17 @@ def exp_scale_f64(x, v):
     for wv in words[1:]:
         out = exp_add(out, exp_mul_f32(x, wv))
     return out[:nw]
+
+
+def broadcast_shapes(*shapes):
+    """The broadcast of ``shapes`` (``torch.broadcast_shapes`` computes it
+    through its symbolic-shape module, which imports sympy; the port runs
+    where sympy is absent)."""
+    n = max((len(s) for s in shapes), default=0)
+    out = []
+    for dims in zip(*((1,) * (n - len(s)) + tuple(s) for s in shapes)):
+        big = {d for d in dims if d != 1}
+        if len(big) > 1:
+            raise RuntimeError(f"shapes {shapes} do not broadcast")
+        out.append(big.pop() if big else 1)
+    return torch.Size(out)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from .f64ops import renorm, vec_sum
+from .ops import broadcast_shapes
 
 __all__ = ["slice_params", "mul_pow2", "row_exponents", "extract_slices",
            "slice_matmul"]
@@ -104,7 +105,7 @@ def slice_matmul(a, b, nw=None):
     nw = nw or len(a)
     m, k = a[0].shape[-2:]
     n = b[0].shape[-1]
-    batch = torch.broadcast_shapes(a[0].shape[:-2], b[0].shape[:-2])
+    batch = broadcast_shapes(a[0].shape[:-2], b[0].shape[:-2])
     if k == 0 or m == 0 or n == 0:
         z = torch.zeros(batch + (m, n), dtype=F64, device=a[0].device)
         return (z,) * nw

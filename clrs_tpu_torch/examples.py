@@ -1,9 +1,17 @@
 """Example problems on the port's API, shared by ``chip_smoke.py``,
 ``torch_step_profile.py`` and the tests: copies of the problem builders of
-``examples/delsarte.py`` and ``examples/polyopt.py`` (which import the JAX
-package) on the port's API."""
+``examples/{delsarte,polyopt,maxcut,delsarte_exact,theta_povm,threepoint}.py``
+(which import the JAX package) on the port's API. The functions that solve
+take ``device=`` (the card by default, as ``solvesdp``)."""
 
 from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+
+from .device import DEFAULT_DEVICE
+from .exact.field import QQ
 
 
 def delsarte_problem(n, d, costheta):
@@ -68,8 +76,6 @@ def min_f_problem(d):
     (examples/polyopt.py:55-99): maximise M such that f - M is an
     S3-invariant SOS, f = x^4 + y^4 + z^4 - 4xyz + x + y + z; the
     reference's defaults demo, min_f(2) = -2.1129138814..."""
-    from fractions import Fraction
-
     from . import (Constraint, LowRankMatPol, Maximize, Objective, Problem,
                    approximatefekete, polynomial_ring,
                    sample_points_chebyshev)
@@ -121,4 +127,324 @@ def min_f(d, **kwargs):
 
     problem = min_f_problem(d)
     status, dualsol, primalsol, t, code = solvesdp(problem, **kwargs)
+    return problem, status, dualsol, primalsol, code
+
+
+def goemans_williamson(L, eps=1e-15, device=DEFAULT_DEVICE, **kwargs):
+    """Goemans-Williamson MAX-CUT relaxation (examples/maxcut.py:14-25):
+    maximize <L/4, X> s.t. <E_ii, X> = 1, X PSD; the 3-cycle gives 9/4."""
+    from . import Constraint, Maximize, Objective, Problem, solvesdp
+
+    n = len(L)
+    obj = Objective(0, {"X": [[Fraction(L[i][j], 4) for j in range(n)]
+                              for i in range(n)]}, {})
+    constraints = []
+    for i in range(n):
+        M = [[Fraction(1) if (a == i and b == i) else Fraction(0)
+              for b in range(n)] for a in range(n)]
+        constraints.append(Constraint(1, {"X": M}, {}))
+    problem = Problem(Maximize(obj), constraints)
+    status, dualsol, primalsol, t, errorcode = solvesdp(
+        problem, duality_gap_threshold=eps, device=device, **kwargs)
+    return problem, status, dualsol, primalsol, errorcode
+
+
+def delsarte_exact_problem(n, d, costheta, FF=QQ):
+    """The Delsarte LP bound with rational samples and exact data
+    (examples/delsarte_exact.py:21-36); ``costheta`` may lie in a number
+    field."""
+    from . import (Constraint, LowRankMatPol, Minimize, Objective, Problem,
+                   basis_chebyshev, basis_gegenbauer, polynomial_ring,
+                   sample_points_chebyshev)
+
+    R, x = polynomial_ring("x")
+    gbasis = basis_gegenbauer(2 * d, n, x)
+    sosbasis = basis_chebyshev(2 * d, x)
+    # rational samples (DelsarteExact.jl:17-18)
+    samples = [Fraction(round(float(s) * 10 ** 4), 10 ** 4)
+               for s in sample_points_chebyshev(2 * d)]
+    c = {}
+    for k in range(2 * d + 1):
+        c[k] = [[gbasis[k]]]
+    c["A"] = LowRankMatPol([1], [sosbasis[: d + 1]])
+    c["B"] = LowRankMatPol([(x + 1) * (costheta - x)], [sosbasis[:d]])
+    constraints = [Constraint(-1, c, {}, samples)]
+    objective = Objective(1, {k: [[1]] for k in range(2 * d + 1)}, {})
+    return Problem(Minimize(objective), constraints)
+
+
+def delsarte_exact(n, d, costheta, FF=QQ, g=1, eps=1e-18,
+                   device=DEFAULT_DEVICE, **kwargs):
+    """delsarte_exact_problem solved numerically, its field data embedded
+    by ``g`` (examples/delsarte_exact.py:39-47). Returns (objective,
+    problem, dualsol, primalsol, errorcode)."""
+    from . import generic_embedding, objvalue, solvesdp
+
+    problem = delsarte_exact_problem(n, d, costheta, FF)
+    if FF is not QQ:
+        problem_num = problem.map(lambda v: generic_embedding(v, g))
+    else:
+        problem_num = problem
+    status, dualsol, primalsol, t, code = solvesdp(
+        problem_num, duality_gap_threshold=eps, device=device, **kwargs)
+    return objvalue(problem_num, primalsol), problem, dualsol, primalsol, code
+
+
+def delsarte_round(n, d, costheta, FF=QQ, g=1, eps=1e-18,
+                   settings=None, verbose=True, device=DEFAULT_DEVICE,
+                   **kwargs):
+    """delsarte_exact rounded to an exact solution over ``FF``
+    (examples/delsarte_exact.py:50-58): delsarte_round(8, 3, 1/2) is 240.
+    Returns (success, problem, exact solution)."""
+    from . import RoundingSettings, exact_solution, polynomial_ring
+
+    obj, problem, dualsol, primalsol, code = delsarte_exact(
+        n, d, costheta, FF=FF, g=g, eps=eps, verbose=verbose, device=device,
+        **kwargs)
+    R, x = polynomial_ring("x")
+    monomial_basis = [x ** k for k in range(2 * d + 1)]
+    success, exactsol = exact_solution(
+        problem, dualsol, primalsol, FF=FF, g=g,
+        settings=settings or RoundingSettings(),
+        monomial_bases=[monomial_basis], verbose=verbose)
+    return success, problem, exactsol
+
+
+def lovasz_theta_c5(verbose=False, device=DEFAULT_DEVICE, **kwargs):
+    """theta(C5) through the frontend Model: max <J, X> s.t. tr X = 1,
+    X_ij = 0 on non-edges, X PSD (examples/theta_povm.py:17-34); sqrt(5),
+    exact over Q(sqrt5)."""
+    from .frontend import Model
+
+    model = Model()
+    edges = {(1, 2), (2, 3), (3, 4), (4, 5), (5, 1)}
+    X = model.psd_variable("X", 5)
+    for i in range(1, 6):
+        for j in range(i + 1, 6):
+            if (i, j) not in edges and (j, i) not in edges:
+                model.add_constraint(X[i - 1, j - 1] == 0)
+    tr = sum(X[i, i] for i in range(5))
+    model.add_constraint(tr == 1)
+    model.maximize(sum(X[i, j] for i in range(5) for j in range(5)))
+    kwargs.setdefault("duality_gap_threshold", 1e-25)  # ~106-bit arithmetic; reference uses 1e-30 at 256-bit
+    kwargs.setdefault("omega_p", 100.0)
+    kwargs.setdefault("omega_d", 100.0)
+    model.solve(verbose=verbose, device=device, **kwargs)
+    return model
+
+
+def povm(verbose=False, device=DEFAULT_DEVICE, **kwargs):
+    """Optimal discrimination of two qubit states by a 2-outcome POVM
+    through the frontend Model (examples/theta_povm.py:37-55);
+    1/2 + sqrt(2)/4, exact over Q(sqrt2)."""
+    from .frontend import Model, real_inner
+
+    model = Model()
+    states = [np.array([[Fraction(1, 2), Fraction(-1, 2)],
+                        [Fraction(-1, 2), Fraction(1, 2)]], dtype=object),
+              0.5 * np.array([[1, 1j], [-1j, 1]])]
+    E = [model.hermitian_psd_variable(f"E{i}", 2) for i in range(2)]
+    # (matrix equality: numpy coerces elementwise `==` on object arrays to
+    # bool, so array constraints go through constrain_equal)
+    model.constrain_equal(E[0] + E[1], np.eye(2, dtype=object))
+    model.maximize((real_inner(states[0], E[0])
+                    + real_inner(states[1], E[1])) / 2)
+    kwargs.setdefault("duality_gap_threshold", 1e-25)  # ~106-bit arithmetic; reference uses 1e-30 at 256-bit
+    kwargs.setdefault("omega_p", 100.0)
+    kwargs.setdefault("omega_d", 100.0)
+    model.solve(verbose=verbose, device=device, **kwargs)
+    return model
+
+
+def _coeff(p, i):
+    return p.terms.get((i,), 0)
+
+
+def Q_poly(n, k, u, v, t):
+    from . import basis_gegenbauer, polynomial_ring
+
+    R, x = polynomial_ring("x")
+    p = basis_gegenbauer(k, n, x)[-1]
+    tot = 0
+    for i in range(k + 1):
+        c = _coeff(p, i)
+        if c == 0:
+            continue
+        term = c * ((1 - u ** 2) * (1 - v ** 2)) ** ((k - i) // 2) \
+            * (t - u * v) ** i
+        tot = term if tot == 0 else tot + term
+    return tot
+
+
+def _mvec(w, d):
+    return [w ** k for k in range(d + 1)]
+
+
+def Smat(n, k, d, u, v, t):
+    """S3-symmetrized matrix (ThreePointBound.jl:13-18)."""
+    mu = _mvec(u, d - k)
+    mv = _mvec(v, d - k)
+    mt = _mvec(t, d - k)
+    sz = d - k + 1
+    out = np.empty((sz, sz), dtype=object)
+    quv = Q_poly(n - 1, k, u, v, t)
+    qtu = Q_poly(n - 1, k, t, u, v)
+    qtv = Q_poly(n - 1, k, t, v, u)
+    for i in range(sz):
+        for j in range(sz):
+            val = quv * (mv[i] * mu[j] + mu[i] * mv[j]) \
+                + qtu * (mt[i] * mu[j] + mu[i] * mt[j]) \
+                + qtv * (mt[i] * mv[j] + mv[i] * mt[j])
+            out[i, j] = Fraction(1, 6) * val
+    return out
+
+
+def _p(u, a, b):
+    return (u - a) * (b - u)
+
+
+def three_point_problem(n, costheta, d2, d3, N2=None, N3=None):
+    """The three-point bound for spherical codes
+    (examples/threepoint.py:71-193): a univariate and an S3-symmetric
+    trivariate SOS constraint sharing the F_k blocks, one cluster."""
+    import scipy.linalg
+
+    from . import (Constraint, LowRankMatPol, Minimize, Objective, Problem,
+                   basis_chebyshev, basis_gegenbauer, polynomial_ring,
+                   sample_points_chebyshev)
+    from .poly.sampled import SampledPolyRing
+
+    costheta = Fraction(costheta)
+    N2 = max(d2, d3) if N2 is None else N2
+    N3 = d3 if N3 is None else N3
+    constraints = []
+
+    # --- univariate constraint (ThreePointBound.jl:60-85) ------------------
+    W, w = polynomial_ring("w")
+    f = {}
+    for k in range(d3 + 1):
+        T = Smat(n, k, d3, w, w, W(1))
+        M = np.empty(T.shape, dtype=object)
+        for i in range(T.shape[0]):
+            for j in range(T.shape[1]):
+                M[i, j] = 3 * T[i, j]
+        f[("F", k)] = M
+    if d2 >= 0:
+        gb = basis_gegenbauer(2 * d2, n, w)
+        for k in range(2 * d2 + 1):
+            f[("a", k)] = LowRankMatPol([gb[k]], [[1]])
+    basis1d = basis_chebyshev(2 * N2, w)
+    samples1d = [Fraction(int(np.floor(float(x) * 10 ** 4)), 10 ** 4)
+                 for x in sample_points_chebyshev(2 * N2, -1, 1)]
+    if N2 >= 0:
+        f[("univariatesos", 1)] = LowRankMatPol([1], [basis1d[: N2 + 1]])
+    if N2 >= 1:
+        f[("univariatesos", 2)] = LowRankMatPol([_p(w, -1, costheta)],
+                                                [basis1d[:N2]])
+    constraints.append(Constraint(-1, f, {}, samples1d))
+
+    # --- trivariate constraint (ThreePointBound.jl:87-155) -----------------
+    R3, u0, v0, t0 = polynomial_ring("u", "v", "t")
+    equivariants = [
+        [[R3(1)]],
+        [[(u0 - v0) * (v0 - t0) * (t0 - u0)]],
+        [[2 * u0 - v0 - t0, 2 * v0 * t0 - u0 * t0 - u0 * v0],
+         [v0 - t0, u0 * t0 - u0 * v0]],
+    ]
+    factors = [[1], [1], [Fraction(1, 2), Fraction(3, 2)]]
+    weights = [
+        R3(1),
+        _p(u0, -1, costheta) + _p(v0, -1, costheta) + _p(t0, -1, costheta),
+        _p(u0, -1, costheta) * _p(v0, -1, costheta)
+        + _p(v0, -1, costheta) * _p(t0, -1, costheta)
+        + _p(t0, -1, costheta) * _p(u0, -1, costheta),
+        _p(u0, -1, costheta) * _p(v0, -1, costheta) * _p(t0, -1, costheta),
+        2 * u0 * v0 * t0 + 1 - u0 ** 2 - v0 ** 2 - t0 ** 2,
+    ]
+
+    # invariant monomial count up to degree 2*N3
+    inv_degs = [(deg, kk, jj) for deg in range(2 * N3 + 1)
+                for kk in range(deg // 3 + 1)
+                for jj in range((deg - 3 * kk) // 2 + 1)]
+    tmp = len(inv_degs)
+    cheb = [sample_points_chebyshev(2 * N3 + k, -1, 1) for k in range(3)]
+    grid = [[cheb[0][i], cheb[1][j], cheb[2][k]]
+            for i in range(2 * N3 + 1)
+            for j in range(2 * N3 + 2)
+            for k in range(2 * N3 + 3)]
+    # unisolvent subset via pivoted QR over the invariant Vandermonde
+    V = np.empty((len(grid), tmp))
+    for gi, pt in enumerate(grid):
+        su = float(pt[0]) + float(pt[1]) + float(pt[2])
+        sp = (float(pt[0]) * float(pt[1]) + float(pt[1]) * float(pt[2])
+              + float(pt[0]) * float(pt[2]))
+        st = float(pt[0]) * float(pt[1]) * float(pt[2])
+        for ci, (deg, kk, jj) in enumerate(inv_degs):
+            V[gi, ci] = su ** (deg - 3 * kk - 2 * jj) * sp ** jj * st ** kk
+    _, _, piv = scipy.linalg.qr(V.T, pivoting=True)
+    chosen = sorted(piv[:tmp])
+    samples = sorted(
+        tuple(Fraction(int(np.floor(float(x) * 10 ** 4)), 10 ** 4) for x in grid[gi])
+        for gi in chosen)
+    samples = [list(s) for s in dict.fromkeys(samples)]
+
+    ring = SampledPolyRing(samples)
+    u = ring(u0)
+    v = ring(v0)
+    t = ring(t0)
+
+    F = {}
+    for k in range(d3 + 1):
+        F[("F", k)] = Smat(n, k, d3, u, v, t)
+
+    _, x = polynomial_ring("x")
+    tempbasis = _mvec(x, N3)
+    basis3d = []
+    degrees3d = []
+    e1 = u + v + t
+    e2 = u * v + v * t + u * t
+    e3 = u * v * t
+    for deg, kk, jj in [(d, k2, j2) for d in range(N3 + 1)
+                        for k2 in range(d // 3 + 1)
+                        for j2 in range((d - 3 * k2) // 2 + 1)]:
+        q = tempbasis[deg - 3 * kk - 2 * jj](e1) * tempbasis[jj](e2) \
+            * tempbasis[kk](e3)
+        basis3d.append(q)
+        degrees3d.append(deg)
+
+    for wi, weight in enumerate(weights):
+        if weight.total_degree() > 2 * N3:
+            continue
+        for eqi, eqs in enumerate(equivariants):
+            vecs = []
+            for row in eqs:
+                vec = []
+                for eq in row:
+                    for q, qdeg in zip(basis3d, degrees3d):
+                        if (weight.total_degree() + 2 * eq.total_degree()
+                                + 2 * qdeg <= 2 * N3):
+                            vec.append(eq * q)
+                if vec:
+                    vecs.append(vec)
+            if vecs:
+                F[("trivariatesos", wi + 1, eqi + 1)] = LowRankMatPol(
+                    [weight * fac for fac in factors[eqi][: len(vecs)]], vecs)
+    constraints.append(Constraint(0, F, {}, samples))
+
+    objdict = {("F", 0): np.ones((d3 + 1, d3 + 1), dtype=object)}
+    for k in range(0, 2 * d2 + 1):
+        objdict[("a", k)] = [[1]]
+    obj = Objective(1, objdict, {})
+    return Problem(Minimize(obj), constraints)
+
+
+def three_point_spherical_codes(n, costheta, d2, d3, device=DEFAULT_DEVICE,
+                                **kwargs):
+    """three_point_problem through the port's solvesdp
+    (examples/threepoint.py:196-199); (4, 1/6, -1, 4) rounds to 10."""
+    from . import solvesdp
+
+    problem = three_point_problem(n, costheta, d2, d3)
+    status, dualsol, primalsol, t, code = solvesdp(problem, device=device,
+                                                   **kwargs)
     return problem, status, dualsol, primalsol, code

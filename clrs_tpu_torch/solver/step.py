@@ -837,16 +837,12 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, lows, bads, gamma,
             min_d = torch.minimum(min_d, torch.where(cl.smask > 0, e, inf).min())
             e = _f64sum(dYs[j]) / _f64sum(state["Ys"][j])
             min_p = torch.minimum(min_p, torch.where(cl.smask > 0, e, inf).min())
-    if ds.dtype == F64:
-        # IEEE division, as the reference's: a host float over a tensor is
-        # reciprocal() * float in PyTorch, two roundings. The f32 path
-        # keeps that form (ROADMAP C2)
-        neg = torch.full_like(one, -gamma)
-        return (torch.where(min_d > -gamma, one, neg / min_d),
-                torch.where(min_p > -gamma, one, neg / min_p))
-    a_d = torch.where(min_d > -gamma, one, -gamma / min_d)
-    a_p = torch.where(min_p > -gamma, one, -gamma / min_p)
-    return a_d, a_p
+    # tensor by tensor, one IEEE division as the reference's -gamma / min_d:
+    # a host float over a tensor is reciprocal() * float in PyTorch, two
+    # roundings
+    neg = torch.full_like(one, -gamma)
+    return (torch.where(min_d > -gamma, one, neg / min_d),
+            torch.where(min_p > -gamma, one, neg / min_p))
 
 
 def _axpy_state(state, dx, dy, dX, dY, dXs, dYs, alpha_d, alpha_p,

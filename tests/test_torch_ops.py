@@ -109,12 +109,15 @@ def test_rsqrt_sqrt_within_seed_tolerance(nw, xla_subnormals):
 
 
 def test_port_imports_no_jax():
-    """`import clrs_tpu_torch` and one CPU IPM step on each substrate (f32
-    and f64 words) load no JAX module, no clrs_tpu module under its own
-    name, and no module whose file lies in the clrs_tpu/ source directory
-    under any name: the port keeps its own copies of the host layers."""
+    """`import clrs_tpu_torch`, one CPU IPM step on each substrate (f32
+    and f64 words) and the exact-certificate path (the GW max-cut solved on
+    the CPU and rounded to 9/4 by exact_solution), with sympy blocked, load
+    no JAX module, no sympy module, no clrs_tpu module under its own name,
+    and no module whose file lies in the clrs_tpu/ source directory under
+    any name: the port keeps its own copies of the host layers."""
     code = r"""
 import sys
+sys.modules["sympy"] = None
 from fractions import Fraction
 from pathlib import Path
 import clrs_tpu_torch as ct
@@ -134,9 +137,16 @@ step = make_step_body(ds, gamma=0.9, beta_feasible=0.1, beta_infeasible=0.3,
                       dual_error_threshold=1e-12, primal_error_threshold=1e-12)
 state, info = step(initial_state(ds, 10.0, 10.0), False)
 assert bool(info["ok"]) and state["y"][0].dtype == torch.float64
+from clrs_tpu_torch.examples import goemans_williamson
+problem, status, ds, ps, code = goemans_williamson(
+    [[2, -1, -1], [-1, 2, -1], [-1, -1, 2]], omega_p=100.0, omega_d=100.0,
+    verbose=False, eps=1e-18, dual_error_threshold=1e-15,
+    primal_error_threshold=1e-15, device="cpu")
+ok, esol = ct.exact_solution(problem, ds, ps, verbose=False)
+assert code == 0 and ok and ct.objvalue(problem, esol) == Fraction(9, 4)
 jax_src = (Path.cwd() / "clrs_tpu").resolve()
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "clrs_tpu" or m.startswith("clrs_tpu."))
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m.split(".")[0] in ("jax", "clrs_tpu", "sympy")))
 bad += sorted(m for m, mod in list(sys.modules.items())
               if getattr(mod, "__file__", None)
               and jax_src in Path(mod.__file__).resolve().parents)

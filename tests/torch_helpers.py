@@ -144,3 +144,99 @@ def poison_x(state):
     w0[:, 0, 1] = float("nan")
     w0[:, 1, 0] = float("nan")
     return state
+
+
+def solution_data(sol):
+    """A DualSolution or PrimalSolution of either package -> the plain data
+    that clrs_tpu_torch.state.solution_from_data takes (read through the
+    classes' attributes, so the JAX package's pass as well)."""
+    def key(k):
+        if type(k).__name__ == "Block":
+            return ("block", k.l, k.r, k.s)
+        return ("name", k)
+
+    def entry(v):
+        if hasattr(v, "hi"):
+            return (float(v.hi), float(v.lo))
+        return Fraction(v)
+
+    mats = [(key(k), [[entry(v) for v in row] for row in np.asarray(m)])
+            for k, m in sol.matrixvars.items()]
+    if hasattr(sol, "x"):
+        return {"kind": "dual", "matrixvars": mats,
+                "x": [[entry(v) for v in xs] for xs in sol.x]}
+    return {"kind": "primal", "matrixvars": mats,
+            "freevars": [(n, entry(v)) for n, v in sol.freevars.items()]}
+
+
+def _exact(v):
+    """A number, a polynomial (its terms), a sampled polynomial (its
+    evaluations) or a field element (its coefficients) as plain exact
+    data."""
+    if hasattr(v, "terms"):
+        return {e: _exact(c) for e, c in v.terms.items()}
+    if hasattr(v, "evaluations"):
+        return [_exact(c) for c in v.evaluations]
+    if hasattr(v, "coeffs"):
+        return [Fraction(c) for c in v.coeffs]
+    return Fraction(v)
+
+
+def _exact_matrix(m):
+    if hasattr(m, "lam"):      # a LowRankMatPol: its values and vectors
+        return ("low rank", [_exact(x) for x in m.lam],
+                [[_exact(x) for x in v] for v in m.vs],
+                [[_exact(x) for x in w] for w in m.ws])
+    if hasattr(m, "to_dense"):
+        m = m.to_dense()
+    a = np.asarray(m, dtype=object)
+    return [[_exact(v) for v in row] for row in a.reshape(a.shape[0], -1)]
+
+
+def problem_data(problem):
+    """A Problem of either package as plain exact data: the sense, then
+    the objective and each constraint as (constant, {name: matrix of
+    Fractions}, {free name: Fraction}, samples)."""
+    def part(c):
+        return (_exact(c.constant),
+                {k: _exact_matrix(m) for k, m in c.matrixcoeff.items()},
+                {k: _exact(v) for k, v in c.freecoeff.items()},
+                [[_exact(x) for x in np.atleast_1d(np.asarray(s, object))]
+                 for s in getattr(c, "samples", [])])
+
+    return (problem.maximize, part(problem.objective),
+            [part(c) for c in problem.constraints])
+
+
+def built_problem(module, build, *args, **kwargs):
+    """The Problem that ``build`` (an example of either package that builds
+    a problem and hands it to ``module.solvesdp``) builds, with the solve
+    stopped there."""
+    class Built(Exception):
+        pass
+
+    def stop(problem, *a, **kw):
+        raise Built(problem)
+
+    inner = module.solvesdp
+    module.solvesdp = stop
+    try:
+        build(*args, **kwargs)
+    except Built as e:
+        return e.args[0]
+    finally:
+        module.solvesdp = inner
+    raise AssertionError(f"{build.__name__} did not call solvesdp")
+
+
+def exact_entries(sol):
+    """An exact solution's entries by key, field elements as their
+    coefficient lists, comparable across the packages' classes."""
+    def key(k):
+        return ("block", k.l, k.r, k.s) if type(k).__name__ == "Block" else k
+
+    out = {key(k): [[_exact(v) for v in row] for row in np.asarray(m)]
+           for k, m in sol.matrixvars.items()}
+    if hasattr(sol, "freevars"):
+        out["free"] = {k: _exact(v) for k, v in sol.freevars.items()}
+    return out

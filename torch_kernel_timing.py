@@ -132,9 +132,10 @@ def _cascade_args(key, rng, K):
             nw)
 
 
-def _call(kernel, key, rng, S, K):
-    """A zero-argument call of the kernel at shape ``key`` on random
-    inputs."""
+def inputs(kernel, key, rng, S, K):
+    """The call of the kernel at shape ``key`` on random inputs: (the name
+    its launches are counted under, its wrapper, its plain version, the
+    arguments)."""
     import numpy as np
     import torch
 
@@ -142,11 +143,12 @@ def _call(kernel, key, rng, S, K):
         nw, B, n, m, trans = key
         lw, _ = K.chol_plain(S._spd(rng, B, n, nw))
         bw = S._words(rng, (B, n, m), nw)
-        return lambda: K.tri_solve_batched(lw, bw, trans)
+        return (K.TRI_FORMS[trans], K.tri_solve_batched, K.tri_solve_plain,
+                (lw, bw, trans))
     if kernel == "chol":
         nw, B, n = key
-        a = S._spd(rng, B, n, nw)
-        return lambda: K.chol_batched(a)
+        return ("chol_batched", K.chol_batched, K.chol_plain,
+                (S._spd(rng, B, n, nw),))
     if kernel == "limb_gemm":
         nw, B, m, k, n = key
         L, _ = K.limb_params(nw)
@@ -154,24 +156,26 @@ def _call(kernel, key, rng, S, K):
                                       "a")
         B3, eb = K.limb_extract_plain(S._words(rng, (B, k, n), nw), L, "b")
         eab = (ea + eb).expand(B, m, n).contiguous()
-        return lambda: K.limb_gemm(A3, B3, eab, nw)
+        return ("limb_gemm", K.limb_gemm, K.limb_gemm_plain,
+                (A3, B3, eab, nw))
     if kernel == "limb_extract":
         nw, B, d0, d1, side, layout = key
         w = S._words(rng, (B, d0, d1), nw, True)
         L, _ = K.limb_params(nw)
-        return lambda: K.limb_extract(w, L, side, layout)
+        return ("limb_extract", K.limb_extract, K.limb_extract_plain,
+                (w, L, side, layout))
     if kernel == "cascade":
-        args = _cascade_args(key, rng, K)
-        fn = K.cascade_from_c if key[-1] == "c" else K.cascade_from_diags
-        return lambda: fn(*args)
+        name = "cascade_from_c" if key[-1] == "c" else "cascade_from_diags"
+        return (name, getattr(K, name), getattr(K, name + "_plain"),
+                _cascade_args(key, rng, K))
     if kernel == "plmap":
-        args = _chain_args(key, rng, S)
-        fn = getattr(K, "plmap_" + key[0].replace("_corr", ""))
-        return lambda: fn(*args)
+        name = "plmap_" + key[0].replace("_corr", "")
+        return (name, getattr(K, name), getattr(K, name + "_plain"),
+                _chain_args(key, rng, S))
     B, M, k, N = key
     a, b = (torch.from_numpy(rng.integers(-65, 66, s).astype(np.int8))
             .to("cuda") for s in ((B, M, k), (B, k, N)))
-    return lambda: K.int8_gemm(a, b)
+    return ("int8_gemm", K.int8_gemm, K.int8_gemm_plain, (a, b))
 
 
 def _bound_ms(kernel, key, S, K):
@@ -288,7 +292,8 @@ def main():
         keys = list(sorted(seen.get(k, {}).items())) + [
             (key, 0) for kk, key in extra if kk == k]
         for key, calls in keys:
-            ms = S.time_ms(_call(k, key, rng, S, K), args.reps)
+            _, fn, _, a = inputs(k, key, rng, S, K)
+            ms = S.time_ms(lambda: fn(*a), args.reps)
             per_it = calls / args.iters
             rows.append(dict(zip(FIELDS[k], key), calls_per_iteration=per_it,
                              ms=ms, ms_per_iteration=per_it * ms,
