@@ -63,13 +63,31 @@ Phases (one line each; any failure exits non-zero):
      then the SDPA fixture solved on the card, its objective within 1e-12
      of the CPU solve's; then every kernel against its plain version, bit
      for bit, at every shape those solves gave its wrapper (recorded on
-     the way to it).
+     the way to it);
+ 13. sharded solves through solvesdp(mesh=make_mesh(n)), every rank
+     eager (graphs: off (mesh)): (13a) one NCCL rank in this process,
+     three iterations of delsarte(3,95) by row panels; (13b) 2, then 4
+     gloo rank processes on the one card (words staged through host
+     memory), each problem compiled once here: delsarte(3,95) by row
+     panels (96 and 48 rows a rank, three iterations), delsarte(3,10)
+     solved on 2 ranks (row panels) and 4 iterations of it on 4 (class
+     and scalar-pack axes; mu/alpha within rel 1e-12 of the one-process
+     card solve's), multi_cluster_test_problem(16, 8) solved on 4
+     (cluster and class axes). mu/alpha within rel 1e-8 of phase 5's on
+     row panels; the full solves' codes, the one-process card solve's
+     iterations and
+     objective (rel 1e-12; delsarte(3,10) within 1e-10 of the oracle);
+     every rank held to check_counts; one line per rank (backend, world
+     size, axes, s/iteration, words moved and collectives per iteration);
+     then every kernel against its plain version at every new shape the
+     ranks gave it.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import decimal
 import json
 import subprocess
 import sys
@@ -437,6 +455,7 @@ class Kernels:
 
     def __init__(self):
         self.recs = {}
+        self.compared = {}      # (group, shape key) -> kernel name
 
     def entry(self, name, replaces):
         return self.recs.setdefault(name, dict(
@@ -1754,12 +1773,13 @@ def recorded(run):
     return out[0], seen
 
 
-def compare_path_shapes(ks, seen, runs):
+def compare_path_shapes(ks, seen, runs, phase=12):
     """Each kernel against its plain version on the card, bit for bit, at
-    every shape that phase 12's solves gave its wrapper (``seen``, from
+    every shape that the phase's solves gave its wrapper (``seen``, from
     :func:`recorded`), on random inputs of that shape
-    (torch_kernel_timing.py's ``inputs``). Fails on any difference and on
-    a kernel that launched in those solves with no shape recorded."""
+    (torch_kernel_timing.py's ``inputs``); a shape an earlier phase of this
+    run compared is not compared again. Fails on any difference and on a
+    kernel that launched in those solves with no shape recorded."""
     import numpy as np
 
     import torch_kernel_timing as T
@@ -1767,19 +1787,284 @@ def compare_path_shapes(ks, seen, runs):
 
     rng = np.random.default_rng(12)
     me = sys.modules[__name__]
-    names = {}
+    names, again = {}, 0
     for group, keys in seen.items():
         for key in sorted(keys, key=repr):
-            name, kernel, plain, args = T.inputs(group, key, rng, me, K)
+            name = ks.compared.get((group, key))
+            if name is None:
+                name, kernel, plain, args = T.inputs(group, key, rng, me, K)
+                ks.check(name, "", kernel, plain, args,
+                         dict(zip(T.FIELDS[group], key), certificate=True))
+                ks.compared[group, key] = name
+            else:
+                again += 1
             names[name] = names.get(name, 0) + 1
-            ks.check(name, "", kernel, plain, args,
-                     dict(zip(T.FIELDS[group], key), certificate=True))
-    print(f"phase 12 shapes compared with the plain versions: {names}",
-          flush=True)
+    print(f"phase {phase} shapes compared with the plain versions: {names} "
+          f"({again} of them compared earlier in this run)", flush=True)
     for name in ks.recs:
         if any(c[name] for c in runs.values()) and not names.get(name):
-            fail(f"{name} launched in phase 12 but no shape of it was "
+            fail(f"{name} launched in phase {phase} but no shape of it was "
                  "recorded")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: sharded solves (clrs_tpu_torch.parallel) on the card: one NCCL
+# rank in this process, then 2 and 4 gloo rank processes on the one card
+# (gloo has no CUDA all-gather: the words are staged through host memory,
+# so their times measure that transport, not a sharded solve's speed)
+# ---------------------------------------------------------------------------
+
+PHASE13_DIR = "build/phase13"
+RANK_TIMEOUT_S = 600
+
+
+def axes_of(sdp, n):
+    """What solvesdp(mesh of n ranks) distributes for ``sdp``: its row-panel
+    groups, then the shard axes of the rest (parallel.api's row_plan and
+    shard_plan on a host DeviceSDP of f64 words with the solve's padding,
+    which needs no limb precompute)."""
+    import copy
+
+    import torch
+
+    from clrs_tpu_torch.compile.preprocess import preprocess_sdp
+    from clrs_tpu_torch.model.checks import remove_empty_blocks
+    from clrs_tpu_torch.parallel import api, bigcluster
+    from clrs_tpu_torch.solver.step import DeviceSDP
+
+    sdp = copy.deepcopy(sdp)
+    remove_empty_blocks(sdp, verbose=False)
+    sdp, _ = preprocess_sdp(sdp, verbose=False)
+    ds = DeviceSDP(sdp, nw=2, device="cpu", dtype=torch.float64,
+                   mesh_divisor=n)
+    parts = []
+    for cl, on in zip(ds.clusters, api.row_plan(ds, n)):
+        cl.row_shard = on
+        if on:
+            parts.append(f"row panels (P {cl.nrows}, {cl.nrows // n} rows a "
+                         f"rank, nb {bigcluster.row_nb(cl.nrows, n)})")
+    for sj, sb, ks in api.shard_plan(ds, n):
+        parts += ["cluster [J]"] * sj + ["class [J*Lc]"] * any(ks) \
+            + ["scalar pack [Bs]"] * sb
+    return ", ".join(dict.fromkeys(parts)) or "none"
+
+
+def sharded_solve(label, sdp, problem, world, kw):
+    """One sharded solve in this rank: solvesdp(sdp, mesh=make_mesh(world),
+    **kw) on the card, eager on every rank, with the kernels' launches
+    counted (set to 0 just before, read just after), the wrappers' shapes
+    recorded and the collectives counted. Returns a dict of plain data."""
+    import torch
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.parallel import comm, make_mesh
+
+    mesh = make_mesh(world)
+    rows = []
+
+    def cb(it, info):
+        rows.append((it, info["mu"], info["alpha_d"], info["alpha_p"]))
+
+    K.reset_counts()
+    comm.reset_counts()
+    (st, _, ps, t, code), seen = recorded(lambda: ct.solvesdp(
+        sdp, mesh=mesh, callback=cb, verbose=False, omega_p=100,
+        omega_d=100, **{k: STEP_KW[k] for k in ("dual_error_threshold",
+                                                "primal_error_threshold")},
+        **kw))
+    torch.cuda.synchronize()
+    return dict(label=label, backend=comm.backend(), world=world, code=code,
+                status=type(st).__name__, its=rows[-1][0] if rows else 0,
+                rows=[r[1:] for r in rows], seconds=t,
+                obj=None if problem is None
+                else float(ct.objvalue(problem, ps)),
+                counts=K.counts(), comm=comm.counts(), seen=seen)
+
+
+def _rank_main(rank, world, store, jobs, out_dir):
+    """A gloo rank process of phase 13: its jobs in turn (sharded_solve's
+    arguments), its results pickled to ``out_dir``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        out = [sharded_solve(*job) for job in jobs]
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def _fresh(path):
+    import shutil
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / path
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def gloo_ranks(world, jobs):
+    """``jobs`` in ``world`` gloo rank processes on the card (spawned, one
+    FileStore under build/); returns each rank's results, rank by rank.
+    A rank that fails fails the phase."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    d = _fresh(f"{PHASE13_DIR}/gloo{world}")
+    try:
+        mp.spawn(_rank_main, args=(world, str(d / "store"), jobs, str(d)),
+                 nprocs=world, join=True)
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        fail(f"a gloo rank of {world} failed: {e}")
+    out = []
+    for r in range(world):
+        with open(d / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def nccl_rank(jobs):
+    """``jobs`` on one NCCL rank in this process (world size 1, a FileStore
+    under build/)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    d = _fresh(f"{PHASE13_DIR}/nccl1")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(d / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S),
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        return [[sharded_solve(*job) for job in jobs]]
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_path(card, problem_3_10, problem_3_95, rows_3_95, ks):
+    """Phase 13: sharded solves on the card through solvesdp(mesh=...).
+    13a: one NCCL rank, delsarte(3,95) by row panels, 3 iterations. 13b: 2
+    gloo ranks (delsarte(3,95) by row panels, 3 iterations; delsarte(3,10)
+    solved, by row panels too: P = 22 gives 11 rows a rank), then 4
+    (delsarte(3,95) again; multi_cluster_test_problem(16, 8) solved on its
+    cluster and class axes; 4 iterations of delsarte(3,10) on its class
+    and scalar-pack axes, since 22 rows do not divide by 4). Each problem
+    is compiled once here and handed to the ranks. Fails unless every rank
+    ends as it should (mu/alpha within rel 1e-8 of phase 5's on row panels
+    and within 1e-12 of the one-process card solve's on the class and
+    scalar-pack axes; the full solves' codes, the one-process iterations
+    and objectives), every rank launched every kernel of its path and no
+    plain version, and every kernel equals its plain version at every
+    shape the ranks gave it. Returns {label: launches summed over the
+    ranks}."""
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.parallel import multi_cluster_test_problem
+
+    print(card, flush=True)
+    t0 = time.time()
+    sdp_95 = ct.ClusteredLowRankSDP(problem_3_95)
+    sdp_10 = ct.ClusteredLowRankSDP(problem_3_10)
+    multi = multi_cluster_test_problem(16, 8)
+    sdp_multi = ct.ClusteredLowRankSDP(multi)
+    kw = dict(omega_p=100, omega_d=100, verbose=False,
+              **{k: STEP_KW[k] for k in ("dual_error_threshold",
+                                         "primal_error_threshold")})
+    its_multi, rows_10 = [], []
+    _, _, ps, _, code_multi = ct.solvesdp(
+        sdp_multi, callback=lambda it, info: its_multi.append(it), **kw)
+    obj_multi = float(ct.objvalue(multi, ps))
+    ct.solvesdp(sdp_10, maxiterations=4, callback=lambda it, info:
+                rows_10.append(info), **kw)
+    print(f"phase 13: problems compiled, multi_cluster_test_problem(16, 8) "
+          f"solved (code {code_multi}, iterations {its_multi[-1]}, "
+          f"objective {obj_multi!r}) and 4 iterations of delsarte(3,10) run "
+          f"in one process in {time.time() - t0:.1f} s", flush=True)
+    if code_multi != 0:
+        fail(f"multi_cluster_test_problem(16, 8) ended with code "
+             f"{code_multi} in one process")
+
+    def mu_alpha(rows):
+        return [(q["mu"], q["alpha_d"], q["alpha_p"]) for q in rows]
+
+    row95 = ("delsarte(3,95) row panels", sdp_95, None)
+    four = ("delsarte(3,10), 4 iterations", sdp_10, None)
+    want = {row95[0]: dict(path=PATH_3_95, code=2, rows=mu_alpha(rows_3_95),
+                           tol=1e-8),
+            four[0]: dict(path=PATH_3_10, code=2, rows=mu_alpha(rows_10),
+                          tol=1e-12),
+            "delsarte(3,10)": dict(path=PATH_3_10, code=0, obj=DELSARTE_3_10,
+                                   tol=1e-10),
+            "multi_cluster_test_problem(16, 8)": dict(
+                path=PATH_3_10, code=0, obj=obj_multi, tol=1e-12,
+                its=its_multi[-1], rel=True)}
+    three = dict(maxiterations=3)
+    runs, seen_all = {}, {}
+    plan = (("13a", 1, nccl_rank, [row95 + (1, three)]),
+            ("13b", 2, None, [row95 + (2, three),
+                              ("delsarte(3,10)", sdp_10, problem_3_10, 2,
+                               {})]),
+            ("13b", 4, None, [row95 + (4, three),
+                              ("multi_cluster_test_problem(16, 8)",
+                               sdp_multi, multi, 4, {}),
+                              four + (4, dict(maxiterations=4))]))
+    for part, world, run, jobs in plan:
+        t1 = time.time()
+        ranks = run(jobs) if run else gloo_ranks(world, jobs)
+        wall = time.time() - t1
+        for j, (label, sdp, problem, _, _) in enumerate(jobs):
+            res = [r[j] for r in ranks]
+            w = want[label]
+            axes = axes_of(sdp, world)
+            for rank, r in enumerate(res):
+                its = max(r["its"], 1)
+                tag = f"{part} {label} {r['backend']} rank {rank}/{world}"
+                if "obj" in w:
+                    tol = w["tol"] * (max(1.0, abs(w["obj"]))
+                                      if w.get("rel") else 1.0)
+                    end = (f"objective {r['obj']!r}, |diff| "
+                           f"{abs(r['obj'] - w['obj']):.3e}")
+                    good = abs(r["obj"] - w["obj"]) <= tol
+                else:
+                    rel = [abs(a - b) / max(1.0, abs(b))
+                           for g, q in zip(r["rows"], w["rows"])
+                           for a, b in zip(g, q)]
+                    end = (f"mu, alpha_d, alpha_p {r['rows']}, largest rel "
+                           f"diff to the one-process solve's "
+                           f"{max(rel, default=0.0):.3e}")
+                    good = (len(r["rows"]) == len(w["rows"])
+                            and max(rel) <= w["tol"])
+                print(f"{tag}: axes {axes}; graphs: off (mesh); code "
+                      f"{r['code']} {r['status']}, iterations {r['its']}, "
+                      f"{r['seconds'] / its:.4f} s/iteration, words moved "
+                      f"{r['comm']['words'] / its:.0f} and collectives "
+                      f"{r['comm']['collectives'] / its:.1f} per iteration; "
+                      f"{end}", flush=True)
+                check_counts(tag, r["counts"], w["path"], its)
+                if r["code"] != w["code"]:
+                    fail(f"{tag} ended with code {r['code']}")
+                if "its" in w and r["its"] != w["its"]:
+                    fail(f"{tag} took {r['its']} iterations, not the "
+                         f"one-process {w['its']}")
+                if not good:
+                    fail(f"{tag}: {end} is not within its tolerance")
+                for group, keys in r["seen"].items():
+                    seen_all.setdefault(group, {}).update(keys)
+            runs[f"phase 13 {label} ({world} {res[0]['backend']})"] = {
+                k: sum(r["counts"][k] for r in res) for k in res[0]["counts"]}
+        print(f"phase {part}, {world} rank(s): {wall:.1f} s", flush=True)
+    compare_path_shapes(ks, seen_all, runs, phase=13)
+    return runs
 
 
 def main():
@@ -1839,8 +2124,15 @@ def main():
     lap("10")
     graph_vs_eager_f64(card, problem_3_10, problem_3_95)
     lap("11")
-    runs.update(certificate_path(card, ks))
+    # the rounding stack raises the process's Decimal precision
+    # (round/find_field.py::_refine_root sets 70 digits, utils/hp.py 50),
+    # which changes every later host compile: keep it inside phase 12
+    with decimal.localcontext():
+        runs.update(certificate_path(card, ks))
     lap("12")
+    runs.update(sharded_path(card, problem_3_10, problem_3_95, rows_3_95,
+                             ks))
+    lap("13")
     for name, r in ks.recs.items():
         r["launches_by_run"] = {k: c[name] for k, c in runs.items()}
         r["launches"] = sum(r["launches_by_run"].values())

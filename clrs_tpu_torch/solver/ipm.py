@@ -26,12 +26,13 @@ from ..compile.sdp import ClusteredLowRankSDP
 from ..dd.core import dd_add_f64 as _host_dd_add
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..model.problem import Block, Problem
+from ..parallel.api import gather_state
 from ..state import state_to_numpy
 from ..utils.hp import DDScalar
 from .status import (DualFeasible, DualSolution, Feasible, NearOptimal,
                      NotConverged, Optimal, PrimalFeasible, PrimalSolution)
 from .step import (F32, F64, DeviceSDP, _w, initial_state, make_assess,
-                   make_run_chunk, zero_info)
+                   make_run_chunk, sharded, zero_info)
 
 __all__ = ["solvesdp", "SolverFailure", "SaveSettings", "word_count",
            "word_count_f64"]
@@ -119,8 +120,22 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     package's substrate off the TPU, whose f64 the card has as IEEE:
     slice GEMMs over one f64 GEMM each and PyTorch expansion ops, captured
     in the same CUDA graphs. Any other substrate raises ValueError;
-    ``substrate=None`` (the reference's pick by platform) and ``mesh=``
-    raise NotImplementedError.
+    ``substrate=None`` (the reference's pick by platform) raises
+    NotImplementedError.
+
+    ``mesh``, a 1-D ``torch.distributed`` DeviceMesh
+    (:func:`clrs_tpu_torch.parallel.make_mesh`; any other object raises
+    TypeError), runs a sharded solve, SPMD: every rank of the mesh's
+    process group calls ``solvesdp`` with the same arguments, on its own
+    ``device``. The axes are padded to the mesh (``DeviceSDP(mesh_divisor=
+    n)``); eligible single big clusters distribute by row panels
+    (``enable_row_sharding``) and the rest shard on the cluster, class and
+    scalar-pack axes (``shard_device_sdp``), which raises ValueError where
+    nothing shards at all (clrs_tpu/solver/ipm.py:142-155, 181-183). The
+    sharded step runs eagerly on every rank (:class:`.graph.EagerSplit`,
+    also on the card): its collectives are not captured in CUDA graphs.
+    Every rank returns the same results, the time being the slowest
+    rank's; only rank 0 writes ``save_settings`` files.
 
     ``sync_every`` (default 1) iterations run as one chunk of
     :func:`.step.make_run_chunk`: on the card each iteration replays the
@@ -138,8 +153,10 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     if substrate not in ("f32", "f64"):
         raise ValueError(f"substrate must be 'f32' or 'f64', got "
                          f"{substrate!r}")
+    mesh_div = 1
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded solves) is not ported")
+        from ..parallel.api import mesh_size
+        mesh_div = mesh_size(mesh)
     dev = resolve_device(device)
     if isinstance(problem, Problem):
         sdp = ClusteredLowRankSDP(problem)
@@ -161,9 +178,26 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     if sync_every < 1:
         raise ValueError(f"sync_every must be at least 1, got {sync_every}")
     if substrate == "f64":
-        ds = DeviceSDP(sdp, nw=word_count_f64(prec), device=dev, dtype=F64)
+        ds = DeviceSDP(sdp, nw=word_count_f64(prec), device=dev, dtype=F64,
+                       mesh_divisor=mesh_div)
     else:
-        ds = DeviceSDP(sdp, nw=word_count(prec), device=dev, dtype=F32)
+        ds = DeviceSDP(sdp, nw=word_count(prec), device=dev, dtype=F32,
+                       mesh_divisor=mesh_div)
+    state = initial_state(ds, float(omega_p), float(omega_d))
+    if dualsol is not None and primalsol is not None:
+        state = _warm_start(ds, sdp, state, dualsol, primalsol)
+    if mesh is not None:
+        from ..parallel.api import (enable_row_sharding, shard_device_sdp,
+                                    shard_state)
+        # single big clusters distribute by row panels; the remaining
+        # groups shard on their cluster, class and scalar-pack axes
+        n_rows = enable_row_sharding(ds, mesh)
+        try:
+            shard_device_sdp(ds, mesh)
+        except ValueError:
+            if n_rows == 0:     # nothing sharded at all: keep the loud
+                raise           # failure (no silent replication)
+        state = shard_state(ds, state, mesh)
     run_chunk = make_run_chunk(
         ds, duality_gap_threshold=duality_gap_threshold,
         need_dual_feasible=need_dual_feasible,
@@ -175,10 +209,6 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
         primal_error_threshold=primal_error_threshold,
         safe_step=safe_step, correctoronly=correctoronly)
     assess = make_assess(ds)
-
-    state = initial_state(ds, float(omega_p), float(omega_d))
-    if dualsol is not None and primalsol is not None:
-        state = _warm_start(ds, sdp, state, dualsol, primalsol)
 
     info0 = _to_host(assess(state))
     dual_error = info0["dual_error"]
@@ -293,18 +323,29 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
                 if ss.time_interval and _time.time() - save_t0 >= ss.time_interval:
                     save_now = True
                     save_t0 = _time.time()
+            if sharded(ds):
+                # the ranks' clocks differ: save where any rank would, so
+                # that every rank joins the gather below
+                save_now = bool(_comm(ds).all_max(torch.full(
+                    (), float(save_now), dtype=torch.float64, device=dev)))
             if save_now:
                 save_count += 1
-                _save(ss, save_count, _extract(ds, sdp, state, post))
+                sols = _extract(ds, sdp, gather_state(ds, state), post)
+                if _rank(ds) == 0:
+                    _save(ss, save_count, sols)
         if itd == 0:
             break
 
     solve_time = _time.time() - t0
-    dualsol_out, primalsol_out = _extract(ds, sdp, state, post)
+    dualsol_out, primalsol_out = _extract(ds, sdp, gather_state(ds, state),
+                                          post)
+    if sharded(ds):
+        solve_time = float(_comm(ds).all_max(torch.full(
+            (), solve_time, dtype=torch.float64, device=dev)))
 
-    if save_settings is not None and (save_settings.time_interval
-                                      or (save_settings.iter_interval
-                                          and last_save_iter != it - 1)):
+    if save_settings is not None and _rank(ds) == 0 and (
+            save_settings.time_interval
+            or (save_settings.iter_interval and last_save_iter != it - 1)):
         save_count += 1
         _save(save_settings, save_count, (dualsol_out, primalsol_out))
 
@@ -329,6 +370,16 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
         status = NotConverged()
 
     return status, dualsol_out, primalsol_out, solve_time, error_code
+
+
+def _comm(ds):
+    """The collectives of a sharded solve (None without a mesh)."""
+    return ds.comm or ds.row_comm
+
+
+def _rank(ds):
+    """This process's rank in a sharded solve (0 without a mesh)."""
+    return 0 if _comm(ds) is None else _comm(ds).rank
 
 
 def _save(ss: SaveSettings, count, sols):

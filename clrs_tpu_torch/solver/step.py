@@ -34,8 +34,18 @@ eigensolver into a head and a tail (:func:`make_step_parts`);
 :func:`make_step_body` runs them eagerly, and on the card :func:`make_step`
 and :func:`make_run_chunk` replay them from CUDA graphs
 (:mod:`.graph`), the counterpart of the JAX package's ``jax.jit`` and
-``lax.while_loop``, on either substrate. Not ported here: the
-row-sharded big-cluster branches.
+``lax.while_loop``, on either substrate.
+
+Sharded over a mesh (:mod:`clrs_tpu_torch.parallel`), every rank runs the
+same step on its slice of the cluster, class or scalar-pack axes; where a
+sharded axis is contracted (the Schur and trace_A sums over the class
+axis, Q, the dy sum, B^T x, the inner products behind mu and the
+objectives) the per-block terms are all-gathered and reduced in the
+one-process order, and the error maxima, step-length minima and ok flags
+are reduced across the ranks. Row-sharded big clusters run their Schur
+assembly, chol(S) and KKT solves by row panels
+(:mod:`clrs_tpu_torch.parallel.bigcluster`). A sharded step runs eagerly
+(:class:`.graph.EagerSplit`): its collectives are not captured.
 """
 
 from __future__ import annotations
@@ -56,7 +66,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["DeviceSDP", "make_step_parts", "make_step_body", "make_step",
            "make_run_chunk", "make_assess", "initial_state", "zero_info",
-           "eig_lowest"]
+           "eig_lowest", "sharded"]
 
 F32 = torch.float32
 F64 = torch.float64
@@ -140,6 +150,27 @@ def _bmm_pre_l(b, pre, nw):
     return fx_matmul(None, b, nw=nw, pre_a=pre)
 
 
+def _class_terms(cl, k, x):
+    """Per-block terms [L, ...] of a class whose [J*Lc] axis is split by
+    rank while its clusters are not: all ranks' blocks, in order, so that
+    the reduction over each cluster's Lc blocks is the one-process one."""
+    return cl.comm.all_gather(x, 0) if k.shard and not cl.shard_j else x
+
+
+def _s_axis(cl):
+    """The sharded axis of a scalar pack [J, Bs], or None."""
+    return 0 if cl.shard_j else (1 if cl.shard_bs else None)
+
+
+def _dot(cl, x, y, dim):
+    """sum(x * y) over all elements (:func:`dl.dd_dot`), with the products
+    gathered along ``dim`` first where it is sharded (``dim`` None: not)."""
+    p = dd_mul(x, y)
+    if dim is not None:
+        p = cl.comm.all_gather(p, dim)
+    return dl.dd_sum(tuple(c.reshape(-1) for c in p), axis=0)
+
+
 @dataclasses.dataclass
 class _DevClass:
     """A batch of same-size-class PSD blocks of one cluster group; the
@@ -172,6 +203,8 @@ class _DevClass:
     U2pre_l: Any = None
     U2tpre_r: Any = None
     Ulpre_l: Any = None
+    shard: bool = False          # the [L] axis split by rank (L is local)
+    lo: int = 0                  # first block of this rank's slice
 
 
 @dataclasses.dataclass
@@ -189,11 +222,19 @@ class _DevCluster:
     smask: Any = None
     s_nb: int = 0
     s_nreal: int = 0
-    row_shard: bool = False      # row-panel sharding: not ported
+    row_shard: bool = False      # row-panel sharding over comm's ranks
     nw: int = 5
     device: Any = None
     dtype: Any = F32
     layout: List[List[Tuple[int, int]]] = None
+    jmask: Any = None            # [J]: 1 a real cluster, 0 mesh padding
+    J_full: int = 0              # J with padding, before any sharding
+    comm: Any = None             # parallel.comm.Comm of a sharded solve
+    shard_j: bool = False        # [J] split by rank (J is local)
+    shard_bs: bool = False       # [Bs] split by rank (s_nb is local)
+    s_lo: int = 0                # first scalar block of this rank
+    B_full: Any = None           # all clusters' B (shard_j)
+    sa_full: Any = None          # all scalar blocks' sa (shard_bs)
 
 
 def _col(v):
@@ -232,13 +273,15 @@ _SCHUR_T1_BATCH_BUDGET = 2 ** 22
 
 class DeviceSDP:
     """Device-resident constants of a compiled SDP as nw-word expansions of
-    ``dtype`` on ``device`` (clrs_tpu/solver/step.py:286-621 with no
-    mesh): f32 words (the substrate of the kernels, with the limb forms of
-    the constant GEMM operands precomputed) or f64 words (the IEEE
-    substrate, no precompute)."""
+    ``dtype`` on ``device`` (clrs_tpu/solver/step.py:286-621): f32 words
+    (the substrate of the kernels, with the limb forms of the constant
+    GEMM operands precomputed) or f64 words (the IEEE substrate, no
+    precompute). ``mesh_divisor=d`` pads the cluster, class and
+    scalar-pack axes for a mesh of d ranks with inert fake clusters and
+    blocks (:mod:`clrs_tpu_torch.parallel`)."""
 
     def __init__(self, sdp: ClusteredLowRankSDP, nw: int = 5,
-                 device=DEFAULT_DEVICE, dtype=F32):
+                 device=DEFAULT_DEVICE, dtype=F32, mesh_divisor: int = 1):
         if dtype not in (F32, F64):
             raise ValueError(f"expansion words are float32 or float64, "
                              f"got {dtype}")
@@ -253,6 +296,11 @@ class DeviceSDP:
                             np.float64(sdp.constant.lo)), nw, dev, dtype)
         self.b = _dd(sdp.b)
         self.nfree = sdp.nfree
+        # the mesh's collectives (parallel.api.shard_device_sdp and
+        # enable_row_sharding set them; None: one process)
+        self.comm = None
+        self.row_comm = None
+        d = max(1, int(mesh_divisor))
 
         protos = []
         for cl in sdp.clusters:
@@ -331,6 +379,21 @@ class DeviceSDP:
             J = len(js)
             base = protos[js[0]]
             P = base["P"]
+            # inert padding for a mesh of d (clrs_tpu/solver/step.py:
+            # 397-441): fake all-zero clusters pad [J] to a multiple of d;
+            # where [J] stays unshardable, fake masked blocks pad each
+            # cluster's Lc so that J * Lc divides by d, and the scalar pack
+            # is padded at its end
+            Jp = J if (d <= 1 or J < d) else -(-J // d) * d
+
+            def _pad_lc(Lc):
+                if d <= 1 or Jp % d == 0:
+                    return Lc
+                Lcp = Lc
+                while (Jp * Lcp) % d:
+                    Lcp += 1
+                return Lcp
+
             for jslot, j in enumerate(js):
                 self.cluster_of[j] = (len(self.clusters), jslot)
             classes = []
@@ -338,19 +401,29 @@ class DeviceSDP:
                 prs = [protos[j]["classes"][ki] for j in js]
                 k0 = prs[0]
                 Lc, n = k0["Lc"], k0["n"]
+                Lcp = _pad_lc(Lc)
                 members = [(j, l, rn) for j, pk in zip(js, prs)
                            for (l, rn) in pk["members"]]
 
                 def cat(key, words=True):
+                    parts = []
+                    for pk in prs:
+                        a = pk[key]
+                        a = (tuple(_pad2(np.asarray(w), (Lcp,) + w.shape[1:])
+                                   for w in a) if words
+                             else _pad2(np.asarray(a),
+                                        (Lcp,) + np.asarray(a).shape[1:]))
+                        parts.append(a)
+                    fake = (tuple(np.zeros_like(w) for w in parts[0]) if words
+                            else np.zeros_like(parts[0]))
+                    parts += [fake] * (Jp - J)
                     if words:
-                        parts = [tuple(np.asarray(w) for w in pk[key])
-                                 for pk in prs]
                         return tuple(np.concatenate([p[w] for p in parts])
                                      for w in range(len(parts[0])))
-                    return np.concatenate([np.asarray(pk[key]) for pk in prs])
+                    return np.concatenate(parts)
 
                 common = dict(
-                    kind=k0["kind"], L=J * Lc, Lc=Lc, n=n, members=members,
+                    kind=k0["kind"], L=Jp * Lcp, Lc=Lcp, n=n, members=members,
                     C=_dd(cat("C")),
                     maskd=_t(cat("maskd", words=False)).to(dtype),
                     maskdiag=_t(cat("maskdiag", words=False)).to(dtype))
@@ -363,9 +436,9 @@ class DeviceSDP:
                     # gathered term columns Ul[i, p*T+t, :] = tmask * V[:, li]
                     Ul, Ur = [], []
                     for wword in Vw:
-                        wl = np.zeros((J * Lc, P * T, n))
-                        wr = np.zeros((J * Lc, P * T, n))
-                        for i in range(J * Lc):
+                        wl = np.zeros((Jp * Lcp, P * T, n))
+                        wr = np.zeros((Jp * Lcp, P * T, n))
+                        for i in range(Jp * Lcp):
                             wl[i] = wword[i].T[li[i].reshape(-1)] * \
                                 tm[i].reshape(-1)[:, None]
                             wr[i] = wword[i].T[ri[i].reshape(-1)] * \
@@ -384,7 +457,7 @@ class DeviceSDP:
                         tmask=_t(tm).to(dtype),
                         Ul=_dd(tuple(Ul)), Ur=_dd(tuple(Ur)),
                         Ulw=_dd(Ulww), Urw=_dd(Urww),
-                        use_pairs=(J * Lc) * (P * T) ** 2
+                        use_pairs=(Jp * Lcp) * (P * T) ** 2
                         <= _SCHUR_T1_BATCH_BUDGET)
                 else:
                     common.update(A=_dd(cat("A")))
@@ -393,6 +466,7 @@ class DeviceSDP:
             def stackj(key):
                 parts = [tuple(np.asarray(w) for w in protos[j][key])
                          for j in js]
+                parts += [tuple(np.zeros_like(w) for w in parts[0])] * (Jp - J)
                 return tuple(np.stack([p[w] for p in parts])
                              for w in range(len(parts[0])))
 
@@ -400,25 +474,41 @@ class DeviceSDP:
             Lcs = [k.Lc for k in classes]
             layout = [[(ki, jslot * Lcs[ki] + slot) for (ki, slot) in lay]
                       for jslot, lay in enumerate(layout)]
-            dc = _DevCluster(J=J, nrows=P, members_j=list(js),
+            jmask = np.zeros(Jp)
+            jmask[:J] = 1.0
+            dc = _DevCluster(J=Jp, nrows=P, members_j=list(js),
                              c=_dd(stackj("c")), B=_dd(stackj("B")),
                              classes=classes, nw=nw, device=dev,
-                             dtype=dtype, layout=layout)
+                             dtype=dtype, layout=layout,
+                             jmask=_t(jmask).to(dtype), J_full=Jp)
             scs = [protos[j]["scalars"] for j in js]
             if scs[0] is not None:
+                Bs = scs[0].nblocks
+                Bsp = Bs if d <= 1 or Jp % d == 0 else -(-Bs // d) * d
+
                 def scat(key, words=True):
-                    parts = [getattr(sc, key) for sc in scs]
+                    parts = []
+                    for sc in scs:
+                        a = getattr(sc, key)
+                        if words:
+                            a = tuple(_pad2(np.asarray(w), (Bsp,)
+                                            + np.asarray(w).shape[1:])
+                                      for w in a)
+                        else:
+                            a = _pad2(np.asarray(a), (Bsp,))
+                        parts.append(a)
+                    fake = (tuple(np.zeros_like(w) for w in parts[0]) if words
+                            else np.zeros_like(parts[0]))
+                    parts += [fake] * (Jp - J)
                     if words:
-                        parts = [tuple(np.asarray(w) for w in a)
-                                 for a in parts]
                         return tuple(np.stack([p[w] for p in parts])
                                      for w in range(len(parts[0])))
-                    return np.stack([np.asarray(a) for a in parts])
+                    return np.stack(parts)
 
                 dc.sa = _dd(scat("a"))
                 dc.sC = _dd(scat("C"))
                 dc.smask = _t(scat("mask", words=False)).to(dtype)
-                dc.s_nb = scs[0].nblocks
+                dc.s_nb = Bsp
                 dc.s_nreal = sum(sc.nreal for sc in scs)
             self.clusters.append(dc)
         self.total_size = sum(rn for cl in self.clusters for k in cl.classes
@@ -554,8 +644,12 @@ def _trace_A_cluster(cl: _DevCluster, Zs, Zsc, panels=None):
             L, P_, T = k.li.shape
             have_panel = panels is not None and panels[ki] is not None
             if have_panel and k.use_pairs:
-                g = tuple(torch.diagonal(c, dim1=1, dim2=2).reshape(L, P_, T)
-                          for c in panels[ki])
+                pan = panels[ki]
+                if isinstance(pan[0], str):           # ("diag", dgy [L, PT])
+                    g = tuple(c.reshape(L, P_, T) for c in pan[1])
+                else:                                 # GY [L, PT, PT]
+                    g = tuple(torch.diagonal(c, dim1=1, dim2=2)
+                              .reshape(L, P_, T) for c in pan)
                 v = dd_mul(k.lam, g)                  # tmask already in U
             elif have_panel:
                 g = _gather_b(panels[ki], k.li, k.ri)
@@ -568,16 +662,21 @@ def _trace_A_cluster(cl: _DevCluster, Zs, Zsc, panels=None):
                     UZ = _bmm(k.Ul, Z)
                 h = dl.dd_sum(dd_mul(UZ, k.Ur), axis=2)
                 v = dd_mul(k.lam, tuple(c.reshape(L, P_, T) for c in h))
+            v = _class_terms(cl, k, v)
             s = dl.dd_sum(tuple(c.movedim(1, 2).reshape(J, -1, P)
                                 for c in v), axis=1)
             tot = dd_add(tot, s)
         else:
-            prod = dd_mul(k.A, tuple(c[:, None] for c in Z))
+            prod = _class_terms(cl, k, dd_mul(k.A, tuple(c[:, None]
+                                                         for c in Z)))
             flat = tuple(c.reshape(J, k.Lc, P, k.n, k.n).movedim(2, 1)
                          .reshape(J, P, -1) for c in prod)
             tot = dd_add(tot, dl.dd_sum(flat, axis=2))
     if cl.s_nb:
-        r = _bmm(tuple(c[:, None, :] for c in Zsc), cl.sa)
+        sa = cl.sa
+        if cl.shard_bs:
+            Zsc, sa = cl.comm.all_gather(Zsc, 1), cl.sa_full
+        r = _bmm(tuple(c[:, None, :] for c in Zsc), sa)
         tot = dd_add(tot, tuple(c[:, 0] for c in r))
     return tot
 
@@ -586,10 +685,13 @@ def _weighted_A_cluster(cl: _DevCluster, a):
     """sum_p a_p A_p per class + scalar pack; ``a`` is [J, P] words."""
     out = []
     for k in cl.classes:
+        # a's rows repeated for each of a cluster's blocks: [L, P]
+        ab = tuple(torch.repeat_interleave(c, k.Lc, dim=0) for c in a)
+        if k.shard and not cl.shard_j:
+            ab = tuple(c[k.lo:k.lo + k.L] for c in ab)
         if k.kind == "lowrank":
             L, P, T = k.li.shape
-            ab = tuple(torch.repeat_interleave(c, k.Lc, dim=0)[:, :, None]
-                       for c in a)
+            ab = tuple(c[:, :, None] for c in ab)
             w = _dd_scale(dd_mul(k.lam, ab), k.tmask)
             wf = tuple(c.reshape(L, P * T, 1) for c in w)
             wUl = dd_mul(wf, k.Ul)                              # [L, PT, n]
@@ -598,12 +700,14 @@ def _weighted_A_cluster(cl: _DevCluster, a):
             else:
                 out.append(_bmm(dl.dd_transpose(wUl), k.Ur))
         else:
-            ab = tuple(torch.repeat_interleave(c, k.Lc, dim=0)[:, :, None, None]
-                       for c in a)
+            ab = tuple(c[:, :, None, None] for c in ab)
             out.append(dl.dd_sum(dd_mul(k.A, ab), axis=1))
     if cl.s_nb:
-        r = _bmm(cl.sa, tuple(c[:, :, None] for c in a))
+        sa = cl.sa_full if cl.shard_bs else cl.sa
+        r = _bmm(sa, tuple(c[:, :, None] for c in a))
         out_s = tuple(c[:, :, 0] for c in r)
+        if cl.shard_bs:
+            out_s = tuple(c[:, cl.s_lo:cl.s_lo + cl.s_nb] for c in out_s)
     else:
         out_s = dl.dd_zeros((cl.J, 0), cl.nw, cl.device, cl.dtype)
     return out, out_s
@@ -627,7 +731,7 @@ def _schur_cluster(cl: _DevCluster, Xinvs, Ys, Xinv_s, Y_s, panels=None):
                 v = dd_mul(gx5, gy5)
                 vt = tuple(c.movedim(2, 3).reshape(L, P_, P_, T * T)
                            for c in v)
-                contrib = dl.dd_sum(vt, axis=3)
+                contrib = _class_terms(cl, k, dl.dd_sum(vt, axis=3))
                 S = dd_add(S, dl.dd_sum(tuple(
                     c.reshape(J, k.Lc, P, P) for c in contrib), axis=1))
                 continue
@@ -653,6 +757,7 @@ def _schur_cluster(cl: _DevCluster, Xinvs, Ys, Xinv_s, Y_s, panels=None):
                 lam1 = tuple(c[:, :, t1, None] for c in k.lam)
                 term = dd_mul(lam1, inner)
                 contrib = term if contrib is None else dd_add(contrib, term)
+            contrib = _class_terms(cl, k, contrib)
             S = dd_add(S, dl.dd_sum(tuple(
                 c.reshape(J, k.Lc, P, P) for c in contrib), axis=1))
         else:
@@ -664,25 +769,74 @@ def _schur_cluster(cl: _DevCluster, Xinvs, Ys, Xinv_s, Y_s, panels=None):
             XAYb = tuple(c.reshape(k.L, P, k.n, k.n) for c in XAY)
             prod = dd_mul(tuple(c[:, :, None] for c in k.A),
                           tuple(c[:, None] for c in XAYb))
-            flat = tuple(c.reshape(J, k.Lc, P, P, -1) for c in prod)
-            S = dd_add(S, dl.dd_sum(dl.dd_sum(flat, axis=4), axis=1))
+            terms = _class_terms(cl, k, dl.dd_sum(tuple(
+                c.reshape(k.L, P, P, -1) for c in prod), axis=3))
+            S = dd_add(S, dl.dd_sum(tuple(c.reshape(J, k.Lc, P, P)
+                                          for c in terms), axis=1))
     if cl.s_nb:
         w = dd_mul(Xinv_s, Y_s)
-        t = dd_mul(cl.sa, tuple(c[:, :, None] for c in w))
-        S = dd_add(S, _bmm(dl.dd_transpose(cl.sa), t))
+        sa = cl.sa
+        if cl.shard_bs:
+            w, sa = cl.comm.all_gather(w, 1), cl.sa_full
+        t = dd_mul(sa, tuple(c[:, :, None] for c in w))
+        S = dd_add(S, _bmm(dl.dd_transpose(sa), t))
+    if len(cl.members_j) < cl.J_full:
+        # fake padding clusters carry S = I so chol(S) stays well-posed
+        # (clrs_tpu/solver/step.py:984-986)
+        S = (S[0] + (1.0 - cl.jmask)[:, None, None]
+             * torch.eye(P, dtype=S[0].dtype, device=cl.device),) + S[1:]
     # keep the upper triangle, mirror it (reference: symmetric!(S))
     iu = torch.triu(torch.ones((P, P), dtype=torch.bool, device=cl.device))
     return tuple(torch.where(iu, c, c.transpose(-1, -2)) for c in S)
+
+
+def _dist_schur_region(cl, Xinv_cls, Y_cls, Xinv_s, Y_s):
+    """Row-panel Schur + chol(S) + L^-1 B of a single-cluster group
+    (cl.J == 1) over cl.comm's ranks (clrs_tpu/solver/step.py:813-873).
+    Returns (("dist", L_loc [Pl, P]), LinvB [1, P, F] replicated, diag(GY)
+    per class [L, PT] replicated, ok)."""
+    from ..parallel import bigcluster as bc
+
+    cm, P = cl.comm, cl.nrows
+    nb = bc.row_nb(P, cm.size)
+    S_loc, dgys = None, []
+    for k, Xi, Yb in zip(cl.classes, Xinv_cls, Y_cls):
+        S_k, dgy_loc = bc.dist_pairs_schur(k, cm.local_rows(k.Ulw, 1),
+                                           cm.local_rows(k.Ur, 1), Xi, Yb, cm)
+        S_loc = S_k if S_loc is None else dd_add(S_loc, S_k)
+        dgys.append(cm.all_gather(dgy_loc, 1))
+    if cl.s_nb:
+        w = dd_mul(Xinv_s, Y_s)                      # [1, Bs]
+        S_loc = dd_add(S_loc, bc.dist_scalar_schur_rows(
+            tuple(c[0] for c in cl.sa), tuple(c[0] for c in w), cm,
+            P // cm.size))
+    L_loc, ok = bc.dist_cholesky(S_loc, P, cm, nb)
+    LinvB = bc.dist_solve_tril(L_loc, tuple(c[0] for c in cl.B), P, cm, nb)
+    return ("dist", L_loc), tuple(c[None] for c in LinvB), dgys, ok
+
+
+def _dist_solve(cl, cholS, rhs, transpose=False):
+    """L X = rhs (or L^T X = rhs) with the row-sharded factor of
+    :func:`_dist_schur_region`; rhs [1, P, m] replicated
+    (clrs_tpu/solver/step.py:876-898)."""
+    from ..parallel import bigcluster as bc
+
+    cm, P = cl.comm, cl.nrows
+    solve = bc.dist_solve_tril_t if transpose else bc.dist_solve_tril
+    out = solve(cholS[1], tuple(c[0] for c in rhs), P, cm,
+                bc.row_nb(P, cm.size))
+    return tuple(c[None] for c in out)
 
 
 def _dot_state(ds, A, B):
     tot = _scalar(torch.zeros((), dtype=ds.dtype, device=ds.device), ds.nw)
     for j, cl in enumerate(ds.clusters):
         for k, Xb, Yb in zip(cl.classes, A["X"][j], B["Y"][j]):
-            tot = dd_add(tot, dl.dd_dot(_dd_scale(Xb, k.maskd), Yb))
+            tot = dd_add(tot, _dot(cl, _dd_scale(Xb, k.maskd), Yb,
+                                   0 if k.shard else None))
         if cl.s_nb:
-            tot = dd_add(tot, dl.dd_dot(_dd_scale(A["Xs"][j], cl.smask),
-                                        B["Ys"][j]))
+            tot = dd_add(tot, _dot(cl, _dd_scale(A["Xs"][j], cl.smask),
+                                   B["Ys"][j], _s_axis(cl)))
     return tot
 
 
@@ -723,8 +877,12 @@ def _residuals(ds: DeviceSDP, state, panelsY=None):
         dres.append(d_j)
     pres = _dd_scale(ds.b, ds.sign)
     for j, cl in enumerate(ds.clusters):
-        Bf = tuple(c.reshape(cl.J * cl.nrows, -1) for c in cl.B)
-        xf = tuple(c.reshape(cl.J * cl.nrows, 1) for c in x[j])
+        B, xj = cl.B, x[j]
+        if cl.shard_j:
+            B, xj = cl.B_full, cl.comm.all_gather(xj, 0)
+        J, P, F = B[0].shape
+        Bf = tuple(c.reshape(J * P, F) for c in B)
+        xf = tuple(c.reshape(J * P, 1) for c in xj)
         Btx = dl.dd_matmul(dl.dd_transpose(Bf), xf)
         pres = dd_sub(pres, _col0(Btx))
     return Pres, Pres_s, pres, dres
@@ -735,14 +893,16 @@ def _objectives(ds: DeviceSDP, state):
     zero = torch.zeros((), dtype=ds.dtype, device=ds.device)
     dot_cx = _scalar(zero, ds.nw)
     for j, cl in enumerate(ds.clusters):
-        dot_cx = dd_add(dot_cx, dl.dd_dot(cl.c, x[j]))
+        dot_cx = dd_add(dot_cx, _dot(cl, cl.c, x[j],
+                                     0 if cl.shard_j else None))
     d_obj = dd_add(_dd_scale(dot_cx, ds.sign), ds.constant)
     CY = _scalar(zero, ds.nw)
     for j, cl in enumerate(ds.clusters):
         for k, Yb in zip(cl.classes, state["Y"][j]):
-            CY = dd_add(CY, dl.dd_dot(k.C, Yb))       # C is zero on padding
+            # C is zero on padding
+            CY = dd_add(CY, _dot(cl, k.C, Yb, 0 if k.shard else None))
         if cl.s_nb:
-            CY = dd_add(CY, dl.dd_dot(cl.sC, state["Ys"][j]))
+            CY = dd_add(CY, _dot(cl, cl.sC, state["Ys"][j], _s_axis(cl)))
     by = dl.dd_dot(ds.b, y)
     p_obj = dd_add(dd_add(CY, by), ds.constant)
     diff = dd_sub(d_obj, p_obj)
@@ -756,10 +916,13 @@ def _errors(ds, Pres, Pres_s, pres, dres):
     dual_error = max(P_error, p_error) (solver.jl:806-847)."""
     P_error = _max_abs_all(ds, Pres, Pres_s)
     p_error = dl.dd_max_abs(pres)
-    dual_error = torch.maximum(P_error, p_error)
     primal_error = torch.zeros((), dtype=F64, device=ds.device)
     for d_j in dres:
         primal_error = torch.maximum(primal_error, dl.dd_max_abs(d_j))
+    if ds.comm is not None:
+        P_error = ds.comm.all_max(P_error)
+        primal_error = ds.comm.all_max(primal_error)
+    dual_error = torch.maximum(P_error, p_error)
     return dual_error, primal_error, P_error, p_error
 
 
@@ -837,6 +1000,8 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, lows, bads, gamma,
             min_d = torch.minimum(min_d, torch.where(cl.smask > 0, e, inf).min())
             e = _f64sum(dYs[j]) / _f64sum(state["Ys"][j])
             min_p = torch.minimum(min_p, torch.where(cl.smask > 0, e, inf).min())
+    if ds.comm is not None:
+        min_d, min_p = ds.comm.all_min(min_d), ds.comm.all_min(min_p)
     # tensor by tensor, one IEEE division as the reference's -gamma / min_d:
     # a host float over a tensor is reciprocal() * float in PyTorch, two
     # roundings
@@ -930,8 +1095,6 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         ok = torch.ones((), dtype=torch.bool, device=dev)
         ok_X = ok.clone()
         ok_S = ok.clone()
-        if any(cl.row_shard for cl in ds.clusters):
-            raise NotImplementedError("row-sharded clusters are not ported")
 
         # mu and mu_p (the words of beta_infeasible, or 0 after a feasible
         # step: a select, as clrs_tpu/solver/step.py:1321)
@@ -974,7 +1137,9 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             xyc, pc = [], []
             for ki, k in enumerate(cl.classes):
                 xyc.append(_bmm(X[j][ki], Y[j][ki]))
-                if k.kind != "lowrank":
+                if k.kind != "lowrank" or cl.row_shard:
+                    # row-sharded clusters get their pairings (and the
+                    # trace diagonal) from the row-panel Schur region
                     pc.append(None)
                 elif k.use_pairs:
                     pc.append(_pairs_xy(k, Xinv[j][ki], Y[j][ki]))
@@ -1021,16 +1186,25 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         # Schur complement per cluster + KKT decomposition
         cholSs, LinvBs = [], []
         for j, cl in enumerate(ds.clusters):
-            S = _schur_cluster(cl, Xinv[j], Y[j], Xinv_s[j], Ys[j],
-                               panels=panels[j])
-            L, okb = dl.b_cholesky(S)
-            okb = okb.all()
+            if cl.row_shard:
+                L, LinvB, dgys, okb = _dist_schur_region(
+                    cl, Xinv[j], Y[j], Xinv_s[j], Ys[j])
+                for ki, dgy in enumerate(dgys):
+                    panelsY[j][ki] = ("diag", dgy)
+            else:
+                S = _schur_cluster(cl, Xinv[j], Y[j], Xinv_s[j], Ys[j],
+                                   panels=panels[j])
+                L, okb = dl.b_cholesky(S)
+                okb = okb.all()
+                LinvB = dl.b_solve_tril(L, cl.B)
             ok = ok & okb
             ok_S = ok_S & okb
             cholSs.append(L)
-            LinvBs.append(dl.b_solve_tril(L, cl.B))
+            LinvBs.append(LinvB)
         Q = dl.dd_zeros((ds.nfree, ds.nfree), nw, dev, dt)
-        for LinvB in LinvBs:
+        for LinvB, cl in zip(LinvBs, ds.clusters):
+            if cl.shard_j:
+                LinvB = cl.comm.all_gather(LinvB, 0)
             Bf = tuple(c.reshape(c.shape[0] * c.shape[1], c.shape[2])
                        for c in LinvB)
             Q = dd_add(Q, dl.dd_matmul(dl.dd_transpose(Bf), Bf))
@@ -1067,10 +1241,15 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             # 3-stage triangular solve, batched over each group's [J]
             temp_x, temp_y = [], []
             for j, cl in enumerate(ds.clusters):
-                tx = dl.b_solve_tril(cholSs[j],
-                                     tuple(c[:, :, None] for c in rhs_x[j]))
+                rhs3 = tuple(c[:, :, None] for c in rhs_x[j])
+                if cl.row_shard:
+                    tx = _dist_solve(cl, cholSs[j], rhs3)
+                else:
+                    tx = dl.b_solve_tril(cholSs[j], rhs3)
                 temp_x.append(tx)
-                temp_y.append(_bmm(dl.dd_transpose(LinvBs[j]), tx))
+                ty = _bmm(dl.dd_transpose(LinvBs[j]), tx)
+                temp_y.append(cl.comm.all_gather(ty, 0) if cl.shard_j
+                              else ty)
             dy = _col(pres)
             for ty in temp_y:
                 dy = dd_sub(dy, dl.dd_sum(ty, axis=0))
@@ -1079,7 +1258,10 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             for j, cl in enumerate(ds.clusters):
                 dyb = tuple(c[None].expand((cl.J,) + c.shape) for c in dy)
                 t = dd_add(temp_x[j], _bmm(LinvBs[j], dyb))
-                dxj = dl.b_solve_tril_t(cholSs[j], t)
+                if cl.row_shard:
+                    dxj = _dist_solve(cl, cholSs[j], t, transpose=True)
+                else:
+                    dxj = dl.b_solve_tril_t(cholSs[j], t)
                 dx.append(tuple(c[:, :, 0] for c in dxj))
             dy = _col0(dy)
             # dX = sum_i dx_i A_i + P
@@ -1130,6 +1312,8 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
 
         # the step-length matrices (the eigensolver's input)
         mats, bads = _step_mats(ds, dX, dY, cholX, cholY)
+        if ds.comm is not None:
+            ok, ok_X, ok_S = (ds.comm.all_and(f) for f in (ok, ok_X, ok_S))
         mid = {
             "dx": dx, "dy": dy, "dX": dX, "dY": dY, "dXs": dXs, "dYs": dYs,
             "bads": bads, "mu": _f64sum(mu), "dual_error": dual_error,
@@ -1172,6 +1356,11 @@ def _as_flag(v, dev):
     if isinstance(v, torch.Tensor):
         return v.to(device=dev, dtype=torch.bool)
     return torch.full((), bool(v), dtype=torch.bool, device=dev)
+
+
+def sharded(ds: DeviceSDP):
+    """Whether ``ds`` runs over a mesh (any axis or row panels sharded)."""
+    return ds.comm is not None or ds.row_comm is not None
 
 
 def make_step_body(ds: DeviceSDP, **kw):
@@ -1248,8 +1437,11 @@ def make_step(ds: DeviceSDP, **kw):
     their replays; the words equal the eager step's bit for bit. Inputs are
     copied into static buffers; the returned state and info ARE the tail
     graph's static outputs, overwritten by the next call: clone what must
-    outlive it. Passing them back as the next call's inputs is fine."""
-    if ds.device.type != "cuda" or not _CAPTURE:
+    outlive it. Passing them back as the next call's inputs is fine.
+
+    A sharded ``ds`` (:func:`sharded`) runs eagerly on every device: its
+    collectives are not captured."""
+    if ds.device.type != "cuda" or not _CAPTURE or sharded(ds):
         return make_step_body(ds, **kw)
     from .graph import GraphSplit
 
@@ -1305,13 +1497,17 @@ def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
 
     The returned state, pd_feas and info are the loop's own buffers,
     overwritten by the next call: clone what must outlive it. Passing them
-    back as the next call's inputs is fine."""
+    back as the next call's inputs is fine.
+
+    A sharded ``ds`` (:func:`sharded`) runs the same loop eagerly
+    (:class:`.graph.EagerSplit`) on every device, the card included: the
+    collectives of its step are not captured."""
     head, tail = make_step_parts(ds, **step_kw)
     dual_error_threshold = step_kw.get("dual_error_threshold", 1e-30)
     primal_error_threshold = step_kw.get("primal_error_threshold", 1e-30)
     correctoronly = step_kw.get("correctoronly", False)
     dev = ds.device
-    graphs = dev.type == "cuda" and _CAPTURE
+    graphs = dev.type == "cuda" and _CAPTURE and not sharded(ds)
 
     def tail_chunk(carry, mid, lows):
         state, pd_feas, info_prev, it, code, done = carry

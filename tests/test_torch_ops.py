@@ -110,8 +110,9 @@ def test_rsqrt_sqrt_within_seed_tolerance(nw, xla_subnormals):
 
 def test_port_imports_no_jax():
     """`import clrs_tpu_torch`, one CPU IPM step on each substrate (f32
-    and f64 words) and the exact-certificate path (the GW max-cut solved on
-    the CPU and rounded to 9/4 by exact_solution), with sympy blocked, load
+    and f64 words), the exact-certificate path (the GW max-cut solved on
+    the CPU and rounded to 9/4 by exact_solution) and `clrs_tpu_torch.parallel`
+    with a mesh of one gloo rank, with sympy blocked, load
     no JAX module, no sympy module, no clrs_tpu module under its own name,
     and no module whose file lies in the clrs_tpu/ source directory under
     any name: the port keeps its own copies of the host layers."""
@@ -144,6 +145,15 @@ problem, status, ds, ps, code = goemans_williamson(
     primal_error_threshold=1e-15, device="cpu")
 ok, esol = ct.exact_solution(problem, ds, ps, verbose=False)
 assert code == 0 and ok and ct.objvalue(problem, esol) == Fraction(9, 4)
+import tempfile
+import torch.distributed as dist
+from clrs_tpu_torch import parallel
+from clrs_tpu_torch.parallel import bigcluster, comm
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group("gloo", store=dist.FileStore(tmp + "/store", 1),
+                            rank=0, world_size=1)
+    assert parallel.make_mesh(1).size() == 1
+    dist.destroy_process_group()
 jax_src = (Path.cwd() / "clrs_tpu").resolve()
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "clrs_tpu", "sympy")))

@@ -220,7 +220,7 @@ def test_solvesdp_refuses_unported_routes():
     problem = polyopt(ct)
     with pytest.raises(ValueError):
         ct.solvesdp(problem, device="cpu", substrate="f16", verbose=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ct.solvesdp(problem, device="cpu", mesh=object(), verbose=False)
     with pytest.raises(ValueError):
         ct.solvesdp(problem, device=None, verbose=False)

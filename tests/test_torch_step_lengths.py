@@ -20,7 +20,7 @@ F64 = torch.float64
 def test_step_lengths_divide_once(gamma, dtype):
     # one class of two members (L 1): lambda_min of the X member gives
     # alpha_d, of the Y member alpha_p; eig_safety 0 keeps lambda itself
-    ds = SimpleNamespace(dtype=dtype, clusters=[SimpleNamespace(
+    ds = SimpleNamespace(dtype=dtype, comm=None, clusters=[SimpleNamespace(
         classes=[SimpleNamespace(n=2, L=1)], s_nb=0)])
     inf = torch.full((), float("inf"), dtype=F64)
     one = torch.full((), 1.0, dtype=F64)

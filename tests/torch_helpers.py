@@ -240,3 +240,132 @@ def exact_entries(sol):
     if hasattr(sol, "freevars"):
         out["free"] = {k: _exact(v) for k, v in sol.freevars.items()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# rank processes of the sharded tests (tests/test_torch_parallel_*.py):
+# spawned by torch.multiprocessing, one thread each, on a gloo FileStore;
+# they import nothing of JAX and hand their words back as numpy arrays
+# ---------------------------------------------------------------------------
+
+STEP_KW = dict(gamma=0.9, beta_feasible=0.1, beta_infeasible=0.3,
+               dual_error_threshold=1e-12, primal_error_threshold=1e-12)
+
+
+def _rank_main(rank, world, tmp, job, args, flush):
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.set_flush_denormal(flush)
+    # a collective that one rank misses fails after this, not after gloo's
+    # default half hour
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(f"{tmp}/store", world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        out = globals()[job](*args)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(tmp_path, world, job, *args, flush=False):
+    """Run ``job(*args)`` (a function of this module) in ``world`` gloo rank
+    processes; returns each rank's result, rank by rank. ``flush`` sets
+    XLA:CPU's flush of subnormals in the ranks (their one thread)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    mp.spawn(_rank_main, args=(world, str(tmp_path), job, args, flush),
+             nprocs=world, join=True)
+    out = []
+    for r in range(world):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def state_words(state):
+    """A state's words as a flat list of numpy arrays, leaf by leaf."""
+    out = [c.detach().cpu().numpy() for c in state["y"]]
+    for key in ("x", "Xs", "Ys"):
+        for ws in state[key]:
+            out += [c.detach().cpu().numpy() for c in ws]
+    for key in ("X", "Y"):
+        for cls in state[key]:
+            for ws in cls:
+                out += [c.detach().cpu().numpy() for c in ws]
+    return out
+
+
+def steps(sdp, nw, dtype, mesh_divisor, row, world, n=1, device="cpu"):
+    """``n`` eager steps of ``sdp`` from omega 100 I on ``device``: over a
+    mesh of ``world`` ranks (row panels if ``row``, else the cluster,
+    class and scalar-pack axes) when ``world``, else in one process.
+    Returns (each step's info, the words of the whole last state, gathered
+    from every rank)."""
+    from clrs_tpu_torch.parallel import api
+    from clrs_tpu_torch.solver import step as TS
+
+    ds = TS.DeviceSDP(sdp, nw=nw, device=device, dtype=dtype,
+                      mesh_divisor=mesh_divisor)
+    state = TS.initial_state(ds, 100.0, 100.0)
+    if world:
+        mesh = api.make_mesh(world)
+        if row:
+            assert api.enable_row_sharding(ds, mesh) == 1
+        else:
+            assert api.shard_device_sdp(ds, mesh) >= 1
+        state = api.shard_state(ds, state, mesh)
+    step = TS.make_step_body(ds, **STEP_KW)
+    infos, feas = [], False
+    for _ in range(n):
+        state, info = step(state, feas)
+        infos.append({k: float(v) for k, v in info.items()})
+        feas = bool(info["pd_feas"])
+    return infos, state_words(api.gather_state(ds, state))
+
+
+def solve_on_mesh(problem, world, kw):
+    """``solvesdp(problem, mesh=make_mesh(world), device="cpu", **kw)`` (no
+    mesh when ``world`` is 0): (code, status name, iterations, objective)."""
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.parallel import make_mesh
+
+    its = []
+    st, dsol, psol, t, code = ct.solvesdp(
+        problem, mesh=make_mesh(world) if world else None, device="cpu",
+        callback=lambda it, info: its.append(it), **kw)
+    return (code, type(st).__name__, its[-1] if its else 0,
+            float(ct.objvalue(problem, psol)))
+
+
+def dist_linalg(S, L, B, nb):
+    """The port's row-panel functions on this rank's rows
+    (clrs_tpu_torch.parallel.bigcluster, f32 words on the CPU): the factor
+    of S (gathered) and its ok flag, and L X = B and L^T X = B given the
+    factor L; S, L [P, P] and B [P, m] are word lists, replicated."""
+    from clrs_tpu_torch.parallel import bigcluster as bc
+    from clrs_tpu_torch.parallel.api import make_mesh
+    from clrs_tpu_torch.parallel.comm import Comm
+
+    world = torch.distributed.get_world_size()
+    cm = Comm(make_mesh(world))
+    P = S[0].shape[0]
+    t = lambda ws: tuple(torch.from_numpy(np.array(w)) for w in ws)  # noqa
+    L_loc, ok = bc.dist_cholesky(cm.local_rows(t(S)), P, cm, nb)
+    Lj = cm.local_rows(t(L))
+    out = [cm.all_gather(L_loc, 0),
+           bc.dist_solve_tril(Lj, t(B), P, cm, nb),
+           bc.dist_solve_tril_t(Lj, t(B), P, cm, nb)]
+    return bool(ok), [[c.numpy() for c in ws] for ws in out]
+
+
+def save_on_rank_1(*args):
+    """A SaveSettings callback that only rank 1 answers yes to."""
+    return torch.distributed.get_rank() == 1

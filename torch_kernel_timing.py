@@ -13,7 +13,7 @@ through ``clrs_tpu_torch.solver.step`` (``--kernel plmap`` records (chain,
 nw, L, n), chain one of add, axpy, residual, residual_corr). Then it times
 the kernel at every recorded shape on random inputs of that shape with
 chip_smoke.py's ``time_ms`` (CUDA events around calls queued behind a spin
-kernel): a solve on an SPD matrix's factor from the plain Cholesky and
+kernel): a solve on an SPD matrix's factor from the Cholesky kernel and
 standard normal right-hand sides, the Cholesky on SPD matrices, the int8
 product on limbs drawn from [-65, 65], the extraction on standard normal
 words with rows scaled by powers of ten, the limb GEMM on such words'
@@ -141,7 +141,11 @@ def inputs(kernel, key, rng, S, K):
 
     if kernel == "tri":
         nw, B, n, m, trans = key
-        lw, _ = K.chol_plain(S._spd(rng, B, n, nw))
+        # the factor by the Cholesky kernel where the solver would call it
+        # (n < 96; its plain version, equal bit for bit, runs seconds a
+        # shape on the card)
+        chol = K.chol_batched if n < 96 else K.chol_plain
+        lw, _ = chol(S._spd(rng, B, n, nw))
         bw = S._words(rng, (B, n, m), nw)
         return (K.TRI_FORMS[trans], K.tri_solve_batched, K.tri_solve_plain,
                 (lw, bw, trans))
