@@ -80,15 +80,39 @@ Phases (one line each; any failure exits non-zero):
      every rank held to check_counts; one line per rank (backend, world
      size, axes, s/iteration, words moved and collectives per iteration);
      then every kernel against its plain version at every new shape the
-     ranks gave it.
+     ranks gave it; 13a runs after phase 12's rounding, whose Decimal
+     precision no longer outlasts it (ROADMAP C3);
+ 14. the certified step-length route (clrs_tpu_torch.solver.step.
+     _STEPLEN_VERIFIED = True, the JAX package's TPU route: f32
+     eigenpairs from cuSOLVER between the graphs, certified in the tail
+     graph by exact limb GEMMs): delsarte(3,10) through the graphs (code
+     0, Optimal, within 1e-9 of the oracle); three iterations of
+     delsarte(3,95), every certified bound within [-1e-3, 1e-12]
+     (1 + |lambda|) of the f64 eigvalsh lambda_min of its member, the
+     graphs' mu/alpha within rel 1e-12 of the eager run's;
+     delsarte(3,4) at f32 prec 212 (nw 8) with thresholds 1e-20: code 0,
+     pdOpt; graph wall ms per iteration on both routes at both problems,
+     in turns; phase 3 holds the kernels at the route's word counts
+     (limb_extract of 1-4-word operands at L 10, 21, 31, cascade<2, true>,
+     limb_gemm_fused<2>) against their plain versions and times them at
+     the route's shapes;
+ 15. the f32 oracles of tests/test_solver_examples.py with their
+     settings: min_f(2) (-2.1129138814 within 1e-6, code 0),
+     cohnelkies(8,3) at nw 5 (0.3255058828303 within 1e-8) and nw 8 (the
+     same, code 0); one line each (the d-15 sphere-packing oracles at f64
+     nw 4 take minutes each: tests/test_torch_gpu_examples.py);
+ 16. solver/timing.py: phase_breakdown at delsarte(3,95), f32 and f64, and
+     solvesdp(testing=True)'s timing line and table at delsarte(3,10);
+     then every kernel against its plain version at every new shape that
+     phases 14-16 gave its wrapper.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import decimal
 import json
+import math
 import subprocess
 import sys
 import time
@@ -899,6 +923,119 @@ def compare_kernels():
     return ks
 
 
+def compare_product_word_counts(ks):
+    """Phase 3 at the word counts of the certified step-length route
+    (clrs_tpu/solver/step.py:1096-1143): limb_extract on operands of 1-4
+    words to a limb count L apart from theirs (10, 21, 31: the L of an
+    nw 2, 5, 8 product), cascade<2, true> and limb_gemm_fused<2>, each
+    against its plain version bit for bit at the edges phase 3 uses, and
+    timed at the route's shapes at delsarte(3,10) (classes of n 11, 10)
+    and (3,95) (n 96, 95; V^T V on the split route) and at one n-128 class
+    (V^T V on the fused route, from n = 126 on)."""
+    import numpy as np
+    import torch
+
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.dd import limb_gemm as tg
+
+    rng = np.random.default_rng(11)
+    PL = Kernels.PL
+    for L in (10, 21, 31):
+        for nw, (B, d0, d1), kind in ((1, (2, 6, 9), "nan"),
+                                      (1, (3, 7, 5), "zero"),
+                                      (1, (2, 5, 12), "huge"),
+                                      (1, (3, 4, 1), "plain"),
+                                      (1, (1, 3, 8192), "plain"),
+                                      (1, (1, 8192, 5), "plain"),
+                                      (1, (2, 96, 40), "transposed"),
+                                      (2, (2, 11, 11), "plain"),
+                                      (3, (2, 17, 9), "nan"),
+                                      (4, (1, 40, 33), "plain")):
+            if kind == "transposed":
+                w = tuple(c.transpose(1, 2) for c in
+                          _edge_words(rng, (B, d1, d0), nw, kind))
+            else:
+                w = _edge_words(rng, (B, d0, d1), nw, kind)
+            for side in ("a", "b"):
+                for layout in ("limb", "gemm"):
+                    ks.check("limb_extract", "", K.limb_extract,
+                             K.limb_extract_plain, (w, L, side, layout),
+                             dict(nw=nw, L=L, B=B, d0=d0, d1=d1, side=side,
+                                  layout=layout, kind=kind))
+    # timed at the route's shapes: E's right operand V^T (L 21, the
+    # fused route at n 96) and V^T V's operands (L 10, the split route at
+    # n 96 and 11)
+    for (B, d0, d1), L, side, layout in (((2, 96, 96), 21, "b", "limb"),
+                                         ((2, 96, 96), 10, "a", "gemm"),
+                                         ((2, 96, 96), 10, "b", "gemm"),
+                                         ((2, 11, 11), 10, "a", "gemm"),
+                                         ((2, 11, 11), 21, "b", "gemm")):
+        w = _words(rng, (B, d0, d1), 1)
+        ks.check("limb_extract", "", K.limb_extract, K.limb_extract_plain,
+                 (w, L, side, layout), dict(nw=1, L=L, B=B, d0=d0, d1=d1,
+                                            side=side, layout=layout,
+                                            certified=True),
+                 cost_extract(1, L, B, d0, d1, side), reps=LIMB_REPS)
+    L, nd = K.limb_params(2)
+    # cascade<2, true>: the route's V^T V at n 96 and 11 (timed), then at
+    # one element, m or n 1, B 300, ragged tiles and limbs +-65 at k 2^13
+    for (B, m, k, n), timed, extreme in (((2, 96, 96, 96), True, False),
+                                         ((2, 11, 11, 11), True, False),
+                                         ((2, 10, 10, 10), False, False),
+                                         ((1, 1, 3, 1), False, False),
+                                         ((3, 1, 5, 17), False, False),
+                                         ((300, 3, 2, 5), False, False),
+                                         ((2, 33, 9, 65), False, False),
+                                         ((1, 33, 8192, 65), False, True)):
+        C = K.int8_gemm_plain(_limbs(rng, (B, L * m, k), extreme),
+                              _limbs(rng, (B, k, L * n), extreme))
+        eab = torch.from_numpy(rng.integers(-40, 41, (B, m, n))
+                               .astype(np.int32)).to("cuda")
+        ks.check("cascade_from_c", "", K.cascade_from_c,
+                 K.cascade_from_c_plain, (C, eab, 2),
+                 dict(nw=2, B=B, m=m, k=k, n=n, extreme=extreme,
+                      certified=True),
+                 cost_cascade(2, L, nd, B, m, n, True) if timed else None,
+                 reps=LIMB_REPS)
+    # limb_gemm_fused<2>: V^T V of an n-128 class (timed), then at the
+    # depths, ragged m and n, unaligned A rows and both tiles
+    for (B, m, k, n), timed in (((2, 128, 128, 128), True),
+                                ((1, 2, 1, 3), False), ((1, 17, 31, 9), False),
+                                ((2, 33, 32, 17), False),
+                                ((1, 5, 8192, 3), False),
+                                ((4, 160, 64, 160), False),
+                                ((2, 130, 130, 130), False)):
+        extreme = k in (1, 31, 32, 8192)
+        if timed:
+            V = _words(rng, (B, k, n), 1)
+            A3, ea = K.limb_extract_plain(tuple(c.transpose(1, 2) for c in V),
+                                          L, "a")
+            B3, eb = K.limb_extract_plain(V, L, "b")
+            eab = (ea + eb).expand(B, m, n).contiguous()
+        else:
+            A3, B3 = (_limbs(rng, (B, L, m, k), extreme),
+                      _limbs(rng, (B, L, k, n), extreme))
+            eab = torch.from_numpy(rng.integers(-8, 9, (B, m, n))
+                                   .astype(np.int32)).to("cuda")
+        ks.check("limb_gemm", "", K.limb_gemm, K.limb_gemm_plain,
+                 (A3, B3, eab, 2), dict(nw=2, B=B, m=m, k=k, n=n,
+                                        extreme=extreme, certified=True),
+                 cost_limb_gemm(2, L, nd, B, m, k, n) if timed else None,
+                 reps=LIMB_REPS)
+    # the two GEMMs of the route through fx_matmul, split against fused
+    for nw_a, nw, n in ((5, None, 96), (8, None, 40), (1, 2, 96),
+                        (1, 2, 128)):
+        a = _words(rng, (2, n, n), nw_a)
+        b = _words(rng, (2, n, n), 1)
+        same, err = _compare(tg.fx_matmul(a, b, nw=nw, route="split"),
+                             tg.fx_matmul(a, b, nw=nw, route="fused"))
+        print(f"  fx_matmul split vs fused ({nw_a}-word by 1-word, nw "
+              f"{nw or nw_a}, n {n}): max_abs_err {err}", flush=True)
+        if not same:
+            fail(f"fx_matmul split and fused routes differ at nw {nw_a} by "
+                 f"1 word, n {n}")
+
+
 # kernels each solve must launch: the split route and the chain kernels
 # at delsarte(3,10); at delsarte(3,95) the fused limb GEMM as well (its
 # Schur pairings exceed the JAX route threshold). cascade<FROM_DIAGS> has
@@ -1011,19 +1148,32 @@ def delsarte_3_95(problem):
     return counts, rows
 
 
+_COMPILED = {}     # id(problem) -> (problem, its preprocessed SDP)
+_DEVICE_SDPS = {}  # (id(problem), nw, dtype) -> DeviceSDP
+
+
 def device_sdp(problem, nw=5, dtype=None):
     """The DeviceSDP that solvesdp builds for ``problem`` on the card (f32
-    words unless ``dtype`` says otherwise)."""
+    words unless ``dtype`` says otherwise). The host compile of a problem
+    and the DeviceSDP of each word count and dtype are made once a run
+    (both are read, never written, by the steps) and shared by the phases
+    that drive it."""
     import clrs_tpu_torch as ct
     from clrs_tpu_torch.compile.preprocess import preprocess_sdp
     from clrs_tpu_torch.model.checks import remove_empty_blocks
     from clrs_tpu_torch.solver.step import DeviceSDP
 
-    sdp = ct.ClusteredLowRankSDP(problem)
-    remove_empty_blocks(sdp, verbose=False)
-    sdp, _ = preprocess_sdp(sdp, verbose=False)
-    return DeviceSDP(sdp, nw=nw, device="cuda",
-                     **({} if dtype is None else {"dtype": dtype}))
+    key = (id(problem), nw, dtype)
+    if key not in _DEVICE_SDPS:
+        if id(problem) not in _COMPILED:
+            sdp = ct.ClusteredLowRankSDP(problem)
+            remove_empty_blocks(sdp, verbose=False)
+            _COMPILED[id(problem)] = (problem,
+                                      preprocess_sdp(sdp, verbose=False)[0])
+        _DEVICE_SDPS[key] = DeviceSDP(
+            _COMPILED[id(problem)][1], nw=nw, device="cuda",
+            **({} if dtype is None else {"dtype": dtype}))
+    return _DEVICE_SDPS[key]
 
 
 def drive(ds, mode, n):
@@ -1808,6 +1958,249 @@ def compare_path_shapes(ks, seen, runs, phase=12):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the certified step-length route (clrs_tpu_torch.solver.step.
+# _STEPLEN_VERIFIED = True, the JAX package's TPU route): f32 eigenpairs
+# from cuSOLVER between the graphs, certified in the tail graph with exact
+# limb GEMMs at the word counts the route gives the kernels
+# ---------------------------------------------------------------------------
+
+# the band of the certified bound below the f64 eigvalsh lambda_min of the
+# same member, relative to 1 + |lambda|: no higher than 1e-12 (the bound is
+# a lower bound; 1e-12 for the f64 eigensolver's own error), and no lower
+# than 1e-3. The JAX package's test allows 1e-4 (tests/test_expops.py:
+# 187-188) for LAPACK's f32 eigenpairs, which leave 1e-5 at delsarte(3,95)'s
+# n 96; torch.linalg.eigh's on the card (cuSOLVER's Jacobi for f32 at
+# n > 32) are 25 times less orthogonal there and leave 3.0-3.3e-4 (PERF.md
+# §6, PR 11). The certification of the same pairs is bit for bit the CPU's.
+BAND_ABOVE, BAND_BELOW = 1e-12, 1e-3
+ROUTES = (("eigvalsh", None), ("certified", True), ("certified", True),
+          ("eigvalsh", None))
+
+
+def _solve_line(label, parts, code, extra=""):
+    """Print one solve's line: code, iterations, seconds, launches."""
+    from clrs_tpu_torch.dd import kernels as K
+
+    n_it = parts.marks[-1][0] if parts.marks else 0
+    plain = {f.__name__ for f in K._PLAIN}
+    launches = sum(v for k, v in parts.counts.items()
+                   if k not in plain and "<" not in k)
+    print(f"{label}: code {code}, iterations {n_it}, solve "
+          f"{parts.seconds['solve']:.2f} s, "
+          f"{parts.seconds['solve'] / max(n_it, 1):.4f} s/iteration "
+          f"({parts.per_iteration():.4f} after the first), kernel launches "
+          f"{launches}{extra}", flush=True)
+    return n_it
+
+
+def certified_route(card, problem_3_10, problem_3_95, runs):
+    """Phase 14 (b): with _STEPLEN_VERIFIED = True, delsarte(3,10) solved
+    at the f32 default through the graphs (code 0, Optimal, within 1e-9 of
+    the oracle, every kernel of PATH_3_10 launched); three iterations of
+    delsarte(3,95) eagerly with every certified bound held to the band
+    below the f64 eigvalsh lambda_min of the same member, then through the
+    graphs (mu/alpha within rel 1e-12 of the eager run's, PATH_3_95
+    launched); the JAX package's test_verified_steplen_reaches_1e15_gap
+    (delsarte(3,4), prec 212: nw 8, thresholds 1e-20: code 0, pdOpt); then
+    graph wall ms per iteration on both routes at both problems, in turns.
+    Adds each solve's counts to ``runs``."""
+    import math
+
+    import torch
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.examples import delsarte
+    from clrs_tpu_torch.solver import step as TS
+
+    TS._STEPLEN_VERIFIED = True
+    try:
+        parts = CertParts()
+        status, _, ps, _, code = parts.solve(lambda: ct.solvesdp(
+            problem_3_10, omega_p=100, omega_d=100, verbose=False,
+            callback=parts.callback,
+            **{k: STEP_KW[k] for k in ("dual_error_threshold",
+                                       "primal_error_threshold")}))
+        obj = float(ct.objvalue(problem_3_10, ps))
+        label = "certified delsarte(3,10)"
+        n_it = _solve_line(label, parts, code, f", objective {obj!r} |err| "
+                           f"{abs(obj - DELSARTE_3_10):.3e}")
+        if code != 0 or not ct.optimal(status) or \
+                not abs(obj - DELSARTE_3_10) < 1e-9:
+            fail(f"{label}: code {code}, status {status!r}, objective {obj!r}")
+        check_counts(label, parts.counts, PATH_3_10, n_it)
+        runs[label] = parts.counts
+
+        ds95 = device_sdp(problem_3_95)
+        band, inner = [], TS._eig_lo_certified
+
+        def recording(W2, lam, V):
+            lo = inner(W2, lam, V)
+            A, bad = TS._eig_input(W2)
+            band.append((lo, torch.linalg.eigvalsh(A)[:, 0], bad))
+            return lo
+
+        TS._eig_lo_certified = recording
+        try:
+            _, rows_e, _ = drive(ds95, "eager", 2)
+        finally:
+            TS._eig_lo_certified = inner
+        lo = torch.cat([b[0] for b in band])
+        ref = torch.cat([b[1] for b in band])
+        ok = ~torch.cat([b[2] for b in band])
+        scale = 1.0 + ref.abs()
+        above = ((lo - ref) / scale)[ok].max().item()
+        below = ((ref - lo) / scale)[ok].max().item()
+        print(f"certified delsarte(3,95), 3 eager iterations: {int(ok.sum())}"
+              f" finite members of {lo.numel()}; certified bound - eigvalsh "
+              f"lambda_min over 1 + |lambda|: at most {above:.3e} above, "
+              f"{below:.3e} below; mu {[r['mu'] for r in rows_e]}; alpha_d "
+              f"{[r['alpha_d'] for r in rows_e]}; alpha_p "
+              f"{[r['alpha_p'] for r in rows_e]}", flush=True)
+        if not (above <= BAND_ABOVE and below <= BAND_BELOW):
+            fail("a certified bound at delsarte(3,95) lies outside "
+                 f"[-{BAND_BELOW}, {BAND_ABOVE}] (1 + |lambda|) of eigvalsh's")
+        _, rows_g, _ = drive(ds95, "graph", 2)
+        runs["certified delsarte(3,95)"] = counts = K.counts()
+        check_counts("certified delsarte(3,95) graph", counts, PATH_3_95, 2)
+        for re_, rg in zip(rows_e, rows_g):
+            for k in ("mu", "alpha_d", "alpha_p"):
+                if not math.isclose(re_[k], rg[k], rel_tol=1e-12):
+                    fail(f"certified delsarte(3,95) graph {k} {rg[k]!r} is "
+                         f"not within rel 1e-12 of the eager {re_[k]!r}")
+        same = all(re_[k] == rg[k] for re_, rg in zip(rows_e, rows_g)
+                   for k in ("mu", "alpha_d", "alpha_p"))
+        print(f"certified delsarte(3,95) graph: mu/alpha equal the eager "
+              f"run's {'to the last digit' if same else 'within rel 1e-12'}",
+              flush=True)
+
+        parts = CertParts()
+        _, status, _, _, code = parts.solve(lambda: delsarte(
+            3, 4, Fraction(1, 2), verbose=False, substrate="f32", prec=212,
+            omega_p=100.0, omega_d=100.0, dual_error_threshold=1e-20,
+            primal_error_threshold=1e-20, callback=parts.callback))
+        label = "certified delsarte(3,4) f32 nw 8, thresholds 1e-20"
+        n_it = _solve_line(label, parts, code, f", status {status!r}")
+        if code != 0 or str(status) != "pdOpt":
+            fail(f"{label}: code {code}, status {status!r}")
+        check_counts(label, parts.counts, PATH_3_10, n_it)
+        runs["certified delsarte(3,4) nw 8"] = parts.counts
+    finally:
+        TS._STEPLEN_VERIFIED = None
+
+    print(card, flush=True)
+    ds10 = device_sdp(problem_3_10)
+    for label, ds in (("delsarte(3,10)", ds10), ("delsarte(3,95)", ds95)):
+        for route, flag in ROUTES:
+            TS._STEPLEN_VERIFIED = flag
+            try:
+                stats, _, _ = drive(ds, "graph", 5)
+            finally:
+                TS._STEPLEN_VERIFIED = None
+            print(f"{label} graph, {route} route: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in stats.items()), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the solve-level oracles of tests/test_solver_examples.py on the
+# card, with their settings (the default step-length route)
+# ---------------------------------------------------------------------------
+
+MIN_F_2_F32 = -2.1129138814          # tests/test_solver_examples.py:52
+COHNELKIES_8_3 = 0.3255058828303     # tests/test_solver_examples.py:66
+
+
+def _oracles():
+    """(label, solve(kw), value, tolerance, code and Optimal required) per
+    f32 oracle of tests/test_solver_examples.py."""
+    from clrs_tpu_torch.examples import cohnelkies, min_f
+
+    tight = dict(omega_p=100.0, omega_d=100.0, verbose=False)
+    return (
+        ("min_f(2) f32 nw 5", lambda kw: min_f(
+            2, dual_error_threshold=1e-12, primal_error_threshold=1e-12,
+            **tight, **kw), MIN_F_2_F32, 1e-6, True),
+        ("cohnelkies(8,3) f32 nw 5", lambda kw: cohnelkies(
+            8, 3, dual_error_threshold=1e-10, primal_error_threshold=1e-10,
+            **tight, **kw), COHNELKIES_8_3, 1e-8, False),
+        ("cohnelkies(8,3) f32 nw 8", lambda kw: cohnelkies(
+            8, 3, prec=212, substrate="f32", duality_gap_threshold=1e-11,
+            dual_error_threshold=1e-10, primal_error_threshold=1e-10,
+            **tight, **kw), COHNELKIES_8_3, 1e-8, True),
+    )
+
+
+def solve_oracles(card, runs):
+    """Phase 15 (c): each oracle solved on the card with its test's
+    settings: its value within the test's tolerance, code 0 and Optimal
+    where the test asks for them; one line each (code, iterations, solve
+    s, s per iteration, the port's kernel launches); each launches every
+    kernel of PATH_3_10 and no plain version. Adds each solve's counts to
+    ``runs``. The two oracles at d 15 (f64, nw 4) take minutes each on the
+    card: tests/test_torch_gpu_examples.py runs them."""
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.dd import kernels as K
+
+    print(card, flush=True)
+    for label, solve, want, tol, strict in _oracles():
+        parts = CertParts()
+        problem, status, _, ps, code = parts.solve(
+            lambda: solve(dict(callback=parts.callback)))
+        v = float(ct.objvalue(problem, ps))
+        n_it = _solve_line(label, parts, code, f", status {status!r}, "
+                           f"objective {v!r} |err| {abs(v - want):.3e}")
+        if not abs(v - want) < tol:
+            fail(f"{label}: objective {v!r} not within {tol} of {want!r}")
+        if strict and (code != 0 or not ct.optimal(status)):
+            fail(f"{label}: code {code}, status {status!r}")
+        check_counts(label, parts.counts, PATH_3_10, n_it)
+        runs[label] = parts.counts
+    K.reset_counts()
+
+
+# ---------------------------------------------------------------------------
+# phase 16: solver/timing.py on the card
+# ---------------------------------------------------------------------------
+
+def phase_tables(card, problem_3_10, problem_3_95):
+    """Phase 16 (d): phase_breakdown at delsarte(3,95) from its initial
+    state, f32 (nw 5) and f64 (nw 2), one table each (ms per call over 3
+    calls after one, CUDA events); then solvesdp(testing=True) on
+    delsarte(3,10) for three iterations prints its timing line and table."""
+    import contextlib
+    import io
+
+    import torch
+
+    import clrs_tpu_torch as ct
+    from clrs_tpu_torch.solver.step import initial_state
+    from clrs_tpu_torch.solver.timing import phase_breakdown
+
+    print(card, flush=True)
+    for label, ds in (("f32 nw 5", device_sdp(problem_3_95)),
+                      ("f64 nw 2", device_sdp(problem_3_95, nw=2,
+                                              dtype=torch.float64))):
+        bd = phase_breakdown(ds, initial_state(ds, 100.0, 100.0))
+        total = sum(bd.values())
+        print(f"phase_breakdown delsarte(3,95) {label}: " + "; ".join(
+            f"{k} {1e3 * v:.3f} ms ({100 * v / total:.1f}%)"
+            for k, v in bd.items()) + f"; sum {1e3 * total:.3f} ms",
+              flush=True)
+        if not all(v > 0 for v in bd.values()):
+            fail(f"phase_breakdown {label}: a phase took no time: {bd}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ct.solvesdp(problem_3_10, omega_p=100, omega_d=100, verbose=False,
+                    maxiterations=3, testing=True)
+    text = out.getvalue()
+    print("solvesdp(testing=True), delsarte(3,10), 3 iterations:\n" + text,
+          end="", flush=True)
+    if not text.startswith("timing: ") or "sum of phases" not in text:
+        fail("solvesdp(testing=True) printed no timing table")
+
+
+# ---------------------------------------------------------------------------
 # phase 13: sharded solves (clrs_tpu_torch.parallel) on the card: one NCCL
 # rank in this process, then 2 and 4 gloo rank processes on the one card
 # (gloo has no CUDA all-gather: the words are staged through host memory,
@@ -2092,6 +2485,7 @@ def main():
 
     print("kernels vs plain versions:", flush=True)
     ks = compare_kernels()
+    compare_product_word_counts(ks)
     torch.cuda.synchronize()
     lap("1-3")
 
@@ -2124,15 +2518,25 @@ def main():
     lap("10")
     graph_vs_eager_f64(card, problem_3_10, problem_3_95)
     lap("11")
-    # the rounding stack raises the process's Decimal precision
-    # (round/find_field.py::_refine_root sets 70 digits, utils/hp.py 50),
-    # which changes every later host compile: keep it inside phase 12
-    with decimal.localcontext():
-        runs.update(certificate_path(card, ks))
+    runs.update(certificate_path(card, ks))
     lap("12")
     runs.update(sharded_path(card, problem_3_10, problem_3_95, rows_3_95,
                              ks))
     lap("13")
+    new = {}
+
+    def phases_14_16():
+        certified_route(card, problem_3_10, problem_3_95, new)
+        lap("14")
+        solve_oracles(card, new)
+        lap("15")
+        phase_tables(card, problem_3_10, problem_3_95)
+        lap("16")
+
+    _, seen = recorded(phases_14_16)
+    compare_path_shapes(ks, seen, new, phase="14-16")
+    runs.update(new)
+    lap("14-16 shapes")
     for name, r in ks.recs.items():
         r["launches_by_run"] = {k: c[name] for k, c in runs.items()}
         r["launches"] = sum(r["launches_by_run"].values())

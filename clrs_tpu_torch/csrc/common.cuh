@@ -132,3 +132,32 @@ __device__ __forceinline__ void transpose_4x4_bytes(const unsigned (&rw)[4], uns
     case 8: { constexpr int NWc = 8; call; } break; \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
+
+// The same, with nw = 2 as well: the word count of the product V^T V of the
+// certified step-length route (clrs_tpu/solver/step.py:1137), which reaches
+// the limb GEMMs' cascade (cascade<2, true>, limb_gemm_fused<2>).
+#define CLRS_DISPATCH_NW_PRODUCT(nw, call)       \
+  switch (nw) {                                  \
+    case 2: { constexpr int NWc = 2; call; } break; \
+    case 5: { constexpr int NWc = 5; call; } break; \
+    case 6: { constexpr int NWc = 6; call; } break; \
+    case 7: { constexpr int NWc = 7; call; } break; \
+    case 8: { constexpr int NWc = 8; call; } break; \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+// The same over every operand word count, nw = 1..8: the extraction takes
+// an operand of any word count (the certified route's eigenvectors are one
+// word) to the limb count of its product.
+#define CLRS_DISPATCH_NW_OPERAND(nw, call)       \
+  switch (nw) {                                  \
+    case 1: { constexpr int NWc = 1; call; } break; \
+    case 2: { constexpr int NWc = 2; call; } break; \
+    case 3: { constexpr int NWc = 3; call; } break; \
+    case 4: { constexpr int NWc = 4; call; } break; \
+    case 5: { constexpr int NWc = 5; call; } break; \
+    case 6: { constexpr int NWc = 6; call; } break; \
+    case 7: { constexpr int NWc = 7; call; } break; \
+    case 8: { constexpr int NWc = 8; call; } break; \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }

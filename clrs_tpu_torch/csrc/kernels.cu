@@ -4,14 +4,21 @@
 // Each C entry (here and in the other sources of csrc/, each compiled on
 // its own) launches on the caller's stream, synchronises nothing,
 // allocates nothing and returns cudaGetLastError(). Word counts NW = 5..8
-// are instantiated (the f32 substrate's ladder); other values return
+// are instantiated (the f32 substrate's ladder), and besides them the
+// extraction's operands of 1..4 words (to a limb count the caller gives)
+// and the cascade's NW = 2 (the certified step-length route's V^T V,
+// clrs_tpu/solver/step.py:1137); other values return
 // cudaErrorInvalidValue. Word tensors are stacked word-major, [B, NW, rows,
 // cols], except where a kernel reads each word where it lies (the
 // extraction, the pl_map chains).
 //
 // limb_extract              replaces clrs_tpu/dd/pallas_linalg.py
 //   _extract_call / pl_extract (all four layouts: 'a3'/'b3'/'a' limb-major,
-//   'b' as the [d0, L d1] GEMM operand). At the main path's sizes (a few
+//   'b' as the [d0, L d1] GEMM operand), an operand of NW = 1..8 words cut
+//   into the L limbs of its product, which the caller gives, as
+//   pl_extract(a, L, ...) takes it (L 10 for an nw-2 product, 21 for nw
+//   5, 31 for nw 8; the certified route extracts its one-word
+//   eigenvectors to each). At the main path's sizes (a few
 //   thousand elements) bound by latency: the per-row (side a) or
 //   per-column (side b) exponent, a reduction over the whole row or column
 //   of word 0, then each element's chain of L rounds of an NW-word vec_sum
@@ -116,7 +123,8 @@ __device__ __forceinline__ unsigned max_u(unsigned a, unsigned b) { return a > b
 // order-free). Tiles that split a row (column) each read all of it again,
 // mostly from L2; the launcher keeps that to EX_MAX_SPLIT tiles. Pass 2:
 // each element scaled by its exponent, then L rounds of x128, vec_sum,
-// round half to even and subtract. Limbs go limb-major [L, d0, d1] (the
+// round half to even and subtract (L, the limb count of the product, apart
+// from the operand's NW). Limbs go limb-major [L, d0, d1] (the
 // 'a3'/'b3' layouts, and 'a' [L d0, d1], which is the same memory) or,
 // with b_gemm, as the 'b' GEMM operand [d0, L d1] (limb t of element
 // (i, j) at column t d1 + j); a warp's stores of one limb are consecutive
@@ -126,8 +134,7 @@ __device__ __forceinline__ unsigned max_u(unsigned a, unsigned b) { return a > b
 template <int NW>
 __global__ void __launch_bounds__(EX_THREADS)
     limb_extract(WordPtrs W, int8_t* __restrict__ limbs, int* __restrict__ E, int d0, int d1,
-                 int side_a, int b_gemm, int cq_n, int rpt, int cpt) {
-  constexpr int L = limb_count(NW);
+                 int side_a, int b_gemm, int cq_n, int rpt, int cpt, int L) {
   __shared__ unsigned mx[EX_THREADS];  // exponent bits of the tile's TR (side a) or TC groups
   const int CQ = cq_n, RT = EX_THREADS / cq_n;
   const int TR = RT * rpt, TC = CQ * cpt;
@@ -647,7 +654,7 @@ inline int pow2_at_least(long v, int cap) {
 
 template <int NW>
 int launch_extract(const WordPtrs& w, int8_t* limbs, int* exps, int B, int d0, int d1,
-                   int side_a, int b_gemm, cudaStream_t s) {
+                   int side_a, int b_gemm, int L, cudaStream_t s) {
   const int cq_max = pow2_at_least(d1, EX_THREADS);
   const int cq_min = EX_THREADS / pow2_at_least(d0, EX_THREADS);
   const int cq_lo = cq_min > 8 ? cq_min : 8;
@@ -665,7 +672,7 @@ int launch_extract(const WordPtrs& w, int8_t* limbs, int* exps, int B, int d0, i
   if (rtiles > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(ctiles), static_cast<unsigned>(rtiles), B);
   limb_extract<NW><<<grid, EX_THREADS, 0, s>>>(w, limbs, exps, d0, d1, side_a, b_gemm, cq, rpt,
-                                                cpt);
+                                                cpt, L);
   return 0;
 }
 
@@ -765,37 +772,38 @@ const char* clrs_error_string(int rc) {
   return cudaGetErrorString(static_cast<cudaError_t>(rc));
 }
 
-// words: nw pointers to the word tensors [B, d0, d1] and strides: their
-// [nw][3] element strides (host arrays).
+// words: nw (1..8) pointers to the word tensors [B, d0, d1] and strides:
+// their [nw][3] element strides (host arrays); L: the limbs of each element
+// (1..48: the int32 diagonal sums of a product stay exact to 48).
 int clrs_limb_extract(const void* const* words, const long long* strides, int8_t* limbs,
-                      int* exps, int B, int nw, int d0, int d1, int side_a, int b_gemm,
+                      int* exps, int B, int nw, int L, int d0, int d1, int side_a, int b_gemm,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || d0 <= 0 || d1 <= 0 || nw > MAX_NW || (b_gemm && side_a))
+  if (B <= 0 || d0 <= 0 || d1 <= 0 || nw > MAX_NW || L < 1 || L > 48 || (b_gemm && side_a))
     return static_cast<int>(cudaErrorInvalidValue);
   WordPtrs w{};
   for (int k = 0; k < nw; ++k) {
     w.w[k] = static_cast<const float*>(words[k]);
     for (int a = 0; a < 3; ++a) w.s[k][a] = strides[3 * k + a];
   }
-  CLRS_DISPATCH_NW(nw, {
-    const int rc = launch_extract<NWc>(w, limbs, exps, B, d0, d1, side_a, b_gemm, s);
+  CLRS_DISPATCH_NW_OPERAND(nw, {
+    const int rc = launch_extract<NWc>(w, limbs, exps, B, d0, d1, side_a, b_gemm, L, s);
     if (rc != 0) return rc;
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-// tile: output elements a block (dd/kernels.py cascade_tile). Offsets within a
-// member of C are 32-bit: (L + 1) L m n < 2^31.
+// tile: output elements a block (dd/kernels.py cascade_tile); nw 2 or 5..8.
+// Offsets within a member of C are 32-bit: (L + 1) L m n < 2^31.
 int clrs_cascade(const int* src, const int* eab, float* out, int B, int m, int n, int nw,
                  int from_c, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long limbs = limb_count(nw);
-  if (B <= 0 || m <= 0 || n <= 0 || B > 65535 || nw < 5 || nw > MAX_NW ||
+  if (B <= 0 || m <= 0 || n <= 0 || B > 65535 || nw < 2 || nw > MAX_NW ||
       (limbs + 1) * limbs * m * n >= (1L << 31) || tile < 8 || tile > CASCADE_TILE_MAX ||
       (tile & (tile - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  CLRS_DISPATCH_NW(nw, launch_cascade<NWc>(src, eab, out, B, m, n, from_c, tile, s));
+  CLRS_DISPATCH_NW_PRODUCT(nw, launch_cascade<NWc>(src, eab, out, B, m, n, from_c, tile, s));
   return static_cast<int>(cudaGetLastError());
 }
 

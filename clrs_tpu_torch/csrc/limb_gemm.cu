@@ -7,7 +7,9 @@
 // [L, k, n] (limb-major, row-major) and eab[b] int32 [m, n]: per output
 // element the int32 diagonal sums D[d] = sum_{ta + tb = d} A[ta] B[tb],
 // d < ND (L = ND = 21 at nw 5: 231 limb pairs; L = ND = 31 at nw 8: 496),
-// folded by the cascade (limbs.cuh) into NW words. The sums are exact in
+// folded by the cascade (limbs.cuh) into NW words. NW = 5..8, and 2 (L =
+// ND = 10: the certified step-length route's V^T V, clrs_tpu/solver/
+// step.py:1137, which takes this route from n = 126 on). The sums are exact in
 // any order (|D| <= 31 * 2^13 * 65^2 < 2^31), so the tensor cores give the
 // plain version's bits.
 //
@@ -339,7 +341,7 @@ int clrs_limb_gemm(const int8_t* a3, const int8_t* b3, const int* eab, float* ou
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || m <= 0 || k <= 0 || n <= 0 || B > 65535 || k > MAX_K_EXACT)
     return static_cast<int>(cudaErrorInvalidValue);
-  CLRS_DISPATCH_NW(nw, {
+  CLRS_DISPATCH_NW_PRODUCT(nw, {
     const int rc = launch_gemm<NWc>(a3, b3, eab, out, B, m, k, n, s);
     if (rc != 0) return rc;
   });

@@ -59,7 +59,7 @@ def _declare(lib):
     lib.clrs_error_string.restype = ctypes.c_char_p
     lib.clrs_limb_extract.argtypes = [ctypes.POINTER(vp),
                                       ctypes.POINTER(ctypes.c_longlong), vp,
-                                      vp, i, i, i, i, i, i, vp]
+                                      vp, i, i, i, i, i, i, i, vp]
     lib.clrs_limb_gemm.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.clrs_chol.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.clrs_tri_solve.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]

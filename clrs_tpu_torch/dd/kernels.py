@@ -21,6 +21,11 @@ so a run can show which route it took (:func:`reset_counts`,
 | plmap_axpy         | plmap<NW, 1>               | pl_map, state update (solver/step.py:1244)     |
 | plmap_residual     | plmap<NW, 2 or 3>          | pl_map, residual R (solver/step.py:1387)       |
 
+The kernels are built for nw = 5..8, the f32 substrate's ladder; besides,
+limb_extract takes operands of 1..8 words to the limb count L its caller
+gives, and limb_gemm and cascade_from_c take nw = 2: the word counts of the
+certified step-length route (clrs_tpu/solver/step.py:1096-1143).
+
 The two forms of tri_solve_batched are also counted apart
 (``tri_solve_batched.launches_by_form``, keyed by ``trans``, and in
 :func:`counts` under their kernels' names).
@@ -41,6 +46,12 @@ from . import ops as O
 
 LIMB_BITS = 7
 KERNEL_NW = (5, 6, 7, 8)   # word counts the CUDA kernels are built for
+# limb_gemm and cascade_from_c also at nw 2, the product V^T V of the
+# certified step-length route (clrs_tpu/solver/step.py:1137); limb_extract
+# takes an operand of any word count 1..8 to the limb count its caller gives
+PRODUCT_NW = (2,) + KERNEL_NW
+OPERAND_NW = tuple(range(1, 9))
+MAX_LIMBS = 48             # fx_matmul's bound: int32 diagonal sums stay exact
 INT8_GEMM_MAX_K = 1 << 13  # csrc/common.cuh MAX_K_EXACT: |C| < 2^31 for limbs <= 65
 _MAX_NW = 8                # csrc/kernels.cu MAX_NW
 
@@ -492,14 +503,14 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _check_nw(nw, name):
-    if nw not in KERNEL_NW:
+def _check_nw(nw, name, built=KERNEL_NW):
+    if nw not in built:
         raise ValueError(f"{name}: CUDA kernels are built for nw in "
-                         f"{KERNEL_NW}, got {nw}")
+                         f"{built}, got {nw}")
 
 
-def _check_words(words, name):
-    _check_nw(len(words), name)
+def _check_words(words, name, built=KERNEL_NW):
+    _check_nw(len(words), name, built)
     for c in words:
         if c.dtype != torch.float32 or not c.is_cuda:
             raise ValueError(f"{name}: words must be float32 CUDA tensors")
@@ -551,7 +562,9 @@ def _cuda_error_name(rc):
 
 def limb_extract(words, L, side, layout="limb"):
     """Scaled L-limb int8 form of nw f32 words [B, d0, d1]; see
-    :func:`limb_extract_plain` for the contract and the layouts."""
+    :func:`limb_extract_plain` for the contract and the layouts. L is the
+    limb count of the product the operand goes into, apart from its own
+    word count (nw 1..8, L 1..48), as ``pl_extract(a, L, ...)`` takes it."""
     if side not in ("a", "b"):
         raise ValueError(side)
     if layout not in ("limb", "gemm"):
@@ -561,11 +574,11 @@ def limb_extract(words, L, side, layout="limb"):
         return limb_extract_plain(words, L, side, layout)
     from .build import library
 
-    _check_words(words, "limb_extract")
+    _check_words(words, "limb_extract", OPERAND_NW)
     nw = len(words)
     Bt, d0, d1 = words[0].shape
-    if L != limb_params(nw)[0]:
-        raise ValueError(f"limb_extract: L={L} does not match nw={nw}")
+    if not 1 <= L <= MAX_LIMBS:
+        raise ValueError(f"limb_extract: L={L} outside 1..{MAX_LIMBS}")
     b_gemm = side == "b" and layout == "gemm"
     dev = words[0].device
     lshape = (Bt, d0, L * d1) if b_gemm else (Bt, L, d0, d1)
@@ -577,7 +590,7 @@ def limb_extract(words, L, side, layout="limb"):
     strides = (ctypes.c_longlong * (3 * nw))(*(s for c in words
                                                for s in c.stride()))
     rc = library().clrs_limb_extract(ptrs, strides, _ptr(limbs), _ptr(e), Bt,
-                                     nw, d0, d1, int(side == "a"),
+                                     nw, L, d0, d1, int(side == "a"),
                                      int(b_gemm), _stream())
     _launched(rc, "limb_extract")
     limb_extract.launches += 1
@@ -602,7 +615,7 @@ def limb_gemm(a3, b3, eab, nw):
         return limb_gemm_plain(a3, b3, eab, nw)
     from .build import library
 
-    _check_nw(nw, "limb_gemm")
+    _check_nw(nw, "limb_gemm", PRODUCT_NW)
     L, _ = limb_params(nw)
     n = b3.shape[3]
     if (a3.dtype != torch.int8 or b3.dtype != torch.int8
@@ -696,7 +709,7 @@ def cascade_from_c(C, eab, nw):
     :func:`cascade_from_c_plain`."""
     if not _route(C):
         return cascade_from_c_plain(C, eab, nw)
-    _check_nw(nw, "cascade_from_c")
+    _check_nw(nw, "cascade_from_c", PRODUCT_NW)
     L, _ = limb_params(nw)
     Bt, LM, LN = C.shape
     if LM % L or LN % L:

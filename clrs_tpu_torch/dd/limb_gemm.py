@@ -72,8 +72,11 @@ def fx_matmul(a, b, nw=None, pre_a=None, pre_b=None, route=None):
     ``pre_a``/``pre_b`` = (int8 limbs [B, L, m, k] / [B, L, k, n], int32
     exps [B, m, 1] / [B, 1, n]) from :func:`host_precompute` (moved to the
     device) skip that operand's scaling and extraction; nw must then be
-    given. ``route`` ('fused' or 'split') overrides :func:`gemm_route`;
-    both give the same words."""
+    given. The operands may carry other word counts than the product's nw
+    (default: a's), as the certified step-length route's one-word
+    eigenvectors do: each is cut into the L limbs of an nw-word product.
+    ``route`` ('fused' or 'split') overrides :func:`gemm_route`; both give
+    the same words."""
     nw = nw or len(a if a is not None else b)
     if pre_a is None:
         Bt, m, k = a[0].shape

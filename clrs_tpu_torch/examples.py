@@ -1,11 +1,14 @@
 """Example problems on the port's API, shared by ``chip_smoke.py``,
 ``torch_step_profile.py`` and the tests: copies of the problem builders of
-``examples/{delsarte,polyopt,maxcut,delsarte_exact,theta_povm,threepoint}.py``
-(which import the JAX package) on the port's API. The functions that solve
-take ``device=`` (the card by default, as ``solvesdp``)."""
+``examples/{delsarte,polyopt,maxcut,delsarte_exact,theta_povm,threepoint,
+spherepacking}.py`` (which import the JAX package) on the port's API. The
+functions that solve take ``device=`` (the card by default, as
+``solvesdp``)."""
 
 from __future__ import annotations
 
+import math
+from decimal import Decimal
 from fractions import Fraction
 
 import numpy as np
@@ -37,6 +40,18 @@ def delsarte_problem(n, d, costheta):
     psd2["slack"] = [[1]]
     constr2 = Constraint(-1, psd2, {"M": -1})
     return Problem(Minimize(obj), [constr1, constr2])
+
+
+def delsarte(n, d, costheta, device=DEFAULT_DEVICE, **kwargs):
+    """delsarte_problem solved on ``device`` (examples/delsarte.py:38-41);
+    delsarte(3, 10, 1/2) is 13.158314... Returns (problem, status,
+    dualsol, primalsol, errorcode)."""
+    from . import solvesdp
+
+    problem = delsarte_problem(n, d, costheta)
+    status, dualsol, primalsol, t, errorcode = solvesdp(
+        problem, device=device, **kwargs)
+    return problem, status, dualsol, primalsol, errorcode
 
 
 def polyopt(f, d, **kwargs):
@@ -445,6 +460,223 @@ def three_point_spherical_codes(n, costheta, d2, d3, device=DEFAULT_DEVICE,
     from . import solvesdp
 
     problem = three_point_problem(n, costheta, d2, d3)
+    status, dualsol, primalsol, t, code = solvesdp(problem, device=device,
+                                                   **kwargs)
+    return problem, status, dualsol, primalsol, code
+
+
+# ---------------------------------------------------------------------------
+# Cohn-Elkies sphere packing bounds (examples/spherepacking.py, from
+# ClusteredLowRankSolver.jl examples/SpherePacking.jl); the reference's
+# oracle cohnelkies(8, 15) ~ pi^4/384
+# ---------------------------------------------------------------------------
+
+def spherevolume(n, r):
+    """vol of the n-ball of radius r, in Decimal (examples/spherepacking.py:
+    21-24)."""
+    from .utils.hp import _as_decimal, gamma_half, pi
+
+    return (pi().sqrt() ** n / gamma_half(Fraction(n, 2) + 1)
+            * _as_decimal(r) ** n)
+
+
+def _scaled_laguerre_basis(n, d, x, scale):
+    """Laguerre basis in ``scale * x``, each normalized by its max
+    coefficient (examples/spherepacking.py:27-35)."""
+    from . import basis_laguerre
+    from .utils.hp import _as_decimal
+
+    q = basis_laguerre(2 * d + 1, Fraction(n, 2) - 1, x * scale)
+    out = []
+    for p in q:
+        mx = max(_as_decimal(c) for c in p.terms.values())
+        out.append(p * (1 / mx))
+    return out
+
+
+def cohnelkies_problem(n, d, r=1):
+    """The Cohn-Elkies bound in the JAX package's well-conditioned form
+    (examples/spherepacking.py:38-118): the coefficients of F(f) in the
+    Fekete-orthogonalized Laguerre basis as free variables, F(f)(0) >= 1
+    through a 1x1 slack block."""
+    from . import (Constraint, LowRankMatPol, Minimize, Objective, Problem,
+                   approximatefekete, basis_laguerre, polynomial_ring,
+                   sample_points_rescaled_laguerre)
+    from .poly.fekete import approximate_fekete
+    from .poly.sampled import SampledPoly, SampledPolyRing
+    from .utils.hp import _as_decimal, pi
+
+    R, x = polynomial_ring("x")
+    two_pi = 2 * pi()
+    alpha = Fraction(n, 2) - 1
+
+    basis_polys = _scaled_laguerre_basis(n, d, x, two_pi)
+    samples0 = sample_points_rescaled_laguerre(2 * d + 1)
+    V1, P1, samples1 = approximate_fekete(samples0, basis_polys)
+    ring1 = SampledPolyRing(samples1)
+    basis1 = [SampledPoly(ring1, list(V1[:, k]))
+              for k in range(len(basis_polys))]
+    nb = len(basis_polys)  # 2d+2 basis elements / free variables
+
+    # q_k as explicit polynomials: q_k = sum_i P1[i,k] * basis_polys[i]
+    q_polys = []
+    for k in range(nb):
+        acc = R(0)
+        for i in range(nb):
+            acc = acc + basis_polys[i] * P1[i, k]
+        q_polys.append(acc)
+
+    # constraint 1: sum_k b_k q_k(x) = <SOS21, bb^T> + x <SOS22, bb^T>
+    free1 = {k: -basis1[k] for k in range(nb)}
+    psd1 = {"SOS21": LowRankMatPol([1], [basis1[: d + 1]]),
+            "SOS22": LowRankMatPol([x], [basis1[: d + 1]])}
+    con1 = Constraint(0, psd1, free1, samples1)
+
+    # normalization: sum_k b_k q_k(0) - slack = 1  (slack >= 0)
+    con0 = Constraint(1, {"slack0": [[-1]]},
+                      {k: q_polys[k](Fraction(0)) for k in range(nb)})
+
+    # constraint 2: SOS + (x - r^2) SOS + sum_k b_k g_k(pi x) = 0 for
+    # x >= r^2, g_k = sum_m c_{k,m} m!/pi^m L_m(pi x) with c_{k,m} the
+    # monomial coefficients of q_k
+    lag = basis_laguerre(2 * d + 1, alpha, x * pi())
+    g = []
+    for k in range(nb):
+        acc = R(0)
+        for m in range(nb):
+            c_km = q_polys[k].terms.get((m,), 0)
+            if c_km != 0:
+                acc = acc + lag[m] * (_as_decimal(c_km)
+                                      * Decimal(math.factorial(m)) / pi() ** m)
+        g.append(acc)
+
+    basis2_polys = _scaled_laguerre_basis(n, d, x, two_pi)
+    r2 = _as_decimal(r) ** 2
+    samples2 = [s + r2 for s in sample_points_rescaled_laguerre(2 * d + 1)]
+    basis2, samples2 = approximatefekete(basis2_polys, samples2)
+
+    free2 = {k: g[k] for k in range(nb)}
+    psd2 = {"SOS31": [[basis2[0] * basis2[0]]],
+            "SOS32": LowRankMatPol([x - Fraction(r) ** 2],
+                                   [basis2[: d + 1]])}
+    # per-sample row scaling by exact powers of two (interface.jl:493)
+    scalings2 = []
+    for s_pt in samples2:
+        mx = max(abs(float(_as_decimal(gk(s_pt)))) for gk in g)
+        scalings2.append(Fraction(2) ** (-int(math.log2(mx))) if mx > 0
+                         else 1)
+    con2 = Constraint(0, psd2, free2, samples2, scalings2)
+
+    # objective: vol(B(r/2)) * f(0) = vol * sum_k b_k g_k(0)
+    vol = spherevolume(n, Fraction(r, 2))
+    freedict = {k: vol * _as_decimal(g[k](Fraction(0))) for k in range(nb)}
+    obj = Objective(0, {}, freedict)
+    return Problem(Minimize(obj), [con0, con1, con2])
+
+
+def cohnelkies(n, d, r=1, device=DEFAULT_DEVICE, **kwargs):
+    """cohnelkies_problem solved on ``device`` (examples/spherepacking.py:
+    121-124). Returns (problem, status, dualsol, primalsol, errorcode)."""
+    from . import solvesdp
+
+    problem = cohnelkies_problem(n, d, r)
+    status, dualsol, primalsol, t, code = solvesdp(problem, device=device,
+                                                   **kwargs)
+    return problem, status, dualsol, primalsol, code
+
+
+def Nsphere_packing_problem(n, d, r, N=None):
+    """Multi-radius sphere packing (examples/spherepacking.py:127-193)."""
+    from . import (Block, Constraint, LowRankMatPol, Minimize, Objective,
+                   Problem, approximatefekete, basis_laguerre,
+                   polynomial_ring, sample_points_rescaled_laguerre)
+    from .utils.hp import _as_decimal, pi, sqrt_dec
+
+    N = len(r) if N is None else N
+    R, x = polynomial_ring("x")
+    two_pi = 2 * pi()
+    alpha = Fraction(n, 2) - 1
+    constraints = []
+
+    # constraint 1: PSD1_{ij} - a_{ij,0} = -sqrt(vol_i vol_j)
+    for i in range(1, N + 1):
+        for j in range(1, i + 1):
+            const = -sqrt_dec(spherevolume(n, r[i - 1])
+                              * spherevolume(n, r[j - 1]))
+            if i != j:
+                psd = {Block("PSD1", i, j): LowRankMatPol([Fraction(1, 2)],
+                                                          [[1]]),
+                       Block("PSD1", j, i): LowRankMatPol([Fraction(1, 2)],
+                                                          [[1]])}
+            else:
+                psd = {Block("PSD1", i, j): LowRankMatPol([1], [[1]])}
+            constraints.append(Constraint(const, psd, {(0, i, j): -1}))
+
+    basis = _scaled_laguerre_basis(n, d, x, two_pi)
+    samples = sample_points_rescaled_laguerre(2 * d + 1)
+    basis, samples = approximatefekete(basis, samples)
+
+    # constraint 2: sum_k a_{ij,k} x^k is an SOS matrix entrywise
+    for i in range(1, N + 1):
+        for j in range(1, i + 1):
+            psd = {}
+            free = {}
+            if i != j:
+                for k in range(0, 2 * d + 2):
+                    free[(k, i, j)] = -2 * x ** k
+                psd[Block("SOS21", i, j)] = LowRankMatPol([1],
+                                                          [basis[: d + 1]])
+                psd[Block("SOS22", i, j)] = LowRankMatPol([x],
+                                                          [basis[: d + 1]])
+                psd[Block("SOS21", j, i)] = LowRankMatPol([1],
+                                                          [basis[: d + 1]])
+                psd[Block("SOS22", j, i)] = LowRankMatPol([x],
+                                                          [basis[: d + 1]])
+            else:
+                for k in range(0, 2 * d + 2):
+                    free[(k, i, j)] = -(x ** k)
+                psd[Block("SOS21", i, j)] = LowRankMatPol([1],
+                                                          [basis[: d + 1]])
+                psd[Block("SOS22", i, j)] = LowRankMatPol([x],
+                                                          [basis[: d + 1]])
+            constraints.append(Constraint(0, psd, free, samples))
+
+    # constraint 3: -f_{ij} >= 0 beyond (r_i + r_j)^2
+    lag = basis_laguerre(2 * d + 1, alpha, x * pi())
+    for i in range(1, N + 1):
+        for j in range(1, i + 1):
+            free = {}
+            for k in range(0, 2 * d + 2):
+                free[(k, i, j)] = lag[k] * (Decimal(math.factorial(k))
+                                            / pi() ** k)
+            rij2 = (Fraction(r[i - 1]) + Fraction(r[j - 1])) ** 2
+            psd = {("SOS31", i, j): LowRankMatPol([1], [basis[:1]]),
+                   ("SOS32", i, j): LowRankMatPol([x - rij2],
+                                                  [basis[: d + 1]])}
+            constraints.append(Constraint(0, psd, free, samples))
+
+    # constraint 4: M - f_ii(0) >= 0
+    lag0 = basis_laguerre(2 * d + 1, alpha, x)
+    for i in range(1, N + 1):
+        free = {}
+        for k in range(0, 2 * d + 2):
+            free[(k, i, i)] = (Decimal(math.factorial(k)) / pi() ** k) \
+                * _as_decimal(lag0[k](Fraction(0)))
+        free["M"] = -1
+        psd = {("slack4", i): [[1]]}
+        constraints.append(Constraint(0, psd, free))
+
+    obj = Objective(0, {}, {"M": 1})
+    return Problem(Minimize(obj), constraints)
+
+
+def Nsphere_packing(n, d, r, N=None, device=DEFAULT_DEVICE, **kwargs):
+    """Nsphere_packing_problem solved on ``device``
+    (examples/spherepacking.py:196-199). Returns (problem, status,
+    dualsol, primalsol, errorcode)."""
+    from . import solvesdp
+
+    problem = Nsphere_packing_problem(n, d, r, N)
     status, dualsol, primalsol, t, code = solvesdp(problem, device=device,
                                                    **kwargs)
     return problem, status, dualsol, primalsol, code

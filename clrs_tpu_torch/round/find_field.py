@@ -16,7 +16,8 @@ import numpy as np
 from ..exact.field import NumberField, QQ
 from ..exact.lll import clindep
 from ..utils.hp import DDScalar, to_fraction
-from .rounding import RoundingSettings, _dd_rref_colpivot, _to_f64
+from .rounding import (RoundingSettings, _dd_rref_colpivot, _to_f64,
+                       keeps_decimal_context)
 
 __all__ = ["find_field", "min_poly", "decompose", "to_field"]
 
@@ -34,6 +35,7 @@ def decompose(v, g, d, bits=100, errbound=1e-15):
     return clindep([[vf]] + [[gf ** k] for k in range(d)], bits, errbound)
 
 
+@keeps_decimal_context
 def to_field(v, N: NumberField, g, bits=100, errbound=1e-15):
     """Approximate v as an element of N (find_field.jl:124-129)."""
     a = decompose(v, g, N.degree, bits=bits, errbound=errbound)
@@ -150,6 +152,7 @@ def _refine_root(N: NumberField, g, digits=60):
     return +x
 
 
+@keeps_decimal_context
 def find_field(dualsol, primalsol, max_degree=10, valbound=1e-15,
                errbound=1e-15, bits=None, max_coeff=10 ** 5):
     """Heuristically find the field over which the kernel is defined

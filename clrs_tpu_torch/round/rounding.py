@@ -19,8 +19,10 @@ reference uses FLINT/Antic via Nemo).
 
 from __future__ import annotations
 
+import functools
 import random
 import warnings
+from decimal import localcontext
 from fractions import Fraction
 from math import isqrt, lcm
 from typing import Dict, List
@@ -1098,6 +1100,19 @@ def is_valid_solution(problem, sol, FF, g, check_slacks=True, verbose=True):
 # top level (rounding.jl:1366-1409)
 # ---------------------------------------------------------------------------
 
+def keeps_decimal_context(fn):
+    """Run ``fn`` in a copy of the caller's Decimal context, so that the
+    precision the rounding sets (find_field.py::_refine_root) does not
+    outlast the call and change every later host compile."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with localcontext():
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+@keeps_decimal_context
 def exact_solution(problem: Problem, dualsol: DualSolution,
                    primalsol: PrimalSolution, *, transformed=False, FF=QQ,
                    g=1, settings: RoundingSettings = None, monomial_bases=None,

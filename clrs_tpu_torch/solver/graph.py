@@ -1,8 +1,9 @@
 """CUDA graphs of the IPM step: the port's counterpart of ``jax.jit``.
 
 An iteration runs in three parts (:func:`.step.make_step_parts`): a head
-from the state up to the step-length matrices, the float64 eigensolver,
-and a tail from the step lengths to the new state and its info. On the
+from the state up to the step-length matrices, the eigensolver (float64
+lowest eigenvalues, or the certified route's f32 eigenpairs), and a tail
+from the step lengths to the new state and its info. On the
 card the head and the tail are each captured once in a CUDA graph and
 replayed; the eigensolver runs eagerly between them, because PyTorch reads
 cuSOLVER's ``info`` on the host, which capture refuses. Both graphs of a
@@ -26,6 +27,7 @@ import time
 import torch
 
 from ..dd import kernels as dk
+from .step import _tree_map
 
 
 def record(fn):
@@ -88,7 +90,8 @@ class GraphSplit:
     once, after an eager warm-up on a side stream (PyTorch's graph recipe:
     it builds the kernels, loads cuBLAS/cuSOLVER and copies the kernels'
     tables to the device), the eigensolver eager between their replays,
-    its results copied into static buffers. ``head`` and ``tail`` must
+    its results (a tensor or a tuple of them per matrix batch) copied into
+    static buffers. ``head`` and ``tail`` must
     read their inputs from static tensors. ``warmup_seconds`` and
     ``capture_seconds`` (capture and instantiation of both graphs) are
     kept; ``host_calls`` counts what the host issues: a replay, an
@@ -109,7 +112,7 @@ class GraphSplit:
         self.warmup_seconds = t1 - t0
         pool = torch.cuda.graph_pool_handle()
         self.head, (self.mid, self.mats) = capture(head, pool)
-        self.lows = [torch.empty_like(lo) for lo in lows]
+        self.lows = _tree_map(torch.empty_like, lows)
         self.tail, self.out = capture(lambda: tail(self.mid, self.lows),
                                       pool)
         torch.cuda.synchronize()
@@ -121,9 +124,10 @@ class GraphSplit:
         self.host_calls += 1
 
     def run_eig(self):
-        for buf, lo in zip(self.lows, self._eig(self.mats)):
-            buf.copy_(lo)
-        self.host_calls += 2 * len(self.mats)
+        copies = []
+        _tree_map(lambda buf, lo: copies.append(buf.copy_(lo)), self.lows,
+                  self._eig(self.mats))
+        self.host_calls += len(self.mats) + len(copies)
 
     def run_tail(self):
         self.tail.replay()

@@ -107,7 +107,7 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
              primalsol: Optional[PrimalSolution] = None,
              safe_step=True, correctoronly=False,
              save_settings: Optional[SaveSettings] = None,
-             preprocess=True, substrate="f32", mesh=None,
+             preprocess=True, testing=False, substrate="f32", mesh=None,
              callback=None, sync_every=None):
     """Solve on ``device`` (the card by default; "cpu" runs the kernels'
     plain versions); returns (status, dualsol, primalsol, solve_time,
@@ -146,7 +146,12 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     card. ``callback(it, info)``, if given, is called once per chunk that
     committed an iteration, with the number of iterations committed so far
     and the host copy of the last committed iteration's info (with
-    ``sync_every=1``: after every committed iteration)."""
+    ``sync_every=1``: after every committed iteration).
+
+    ``testing=True`` prints, after the solve, the wall time of the first
+    chunk (which captures the graphs on the card) against the later ones,
+    and the per-phase table of :func:`.timing.print_breakdown` on the
+    final state (clrs_tpu/solver/ipm.py:366-374)."""
     if substrate is None:
         raise NotImplementedError("substrate=None (a pick by platform) is "
                                   "not ported; pass 'f32' or 'f64'")
@@ -227,6 +232,7 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     error_code = 0
     it = 1
     t0 = _time.time()
+    step_times = []  # wall time per chunk (the first includes the capture)
     save_count = 0
     last_save_iter = 0
     save_t0 = _time.time()
@@ -263,9 +269,11 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
         if it == 1:
             feas_dev, info_dev = pd_feas, zero_info(info0, dev)
         n = min(sync_every, maxiterations - it + 1)
+        t_it = _time.time()
         state, feas_dev, info_dev, itd, code, done = run_chunk(
             state, feas_dev, info_dev, n)
         info = _to_host(info_dev, it_done=itd, code=code)
+        step_times.append(_time.time() - t_it)
         itd, code = int(info.pop("it_done")), int(info.pop("code"))
         if itd:
             it += itd
@@ -353,6 +361,17 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
         print(f"\nPrimal objective: {p_obj}")
         print(f"Dual objective: {d_obj}")
         print(f"duality gap: {dual_gap}")
+    if testing and step_times:
+        # the reference's `testing=true` phase table (solver.jl:664-718):
+        # the first chunk (graph capture) against the steady state, then
+        # each phase timed on its own
+        rest = step_times[1:] or step_times
+        print(f"timing: total {solve_time:.2f}s over {len(step_times)} "
+              f"iterations; first call (incl. capture) "
+              f"{step_times[0]:.2f}s; steady-state "
+              f"{1e3 * sum(rest) / len(rest):.2f} ms/iter")
+        from .timing import print_breakdown
+        print_breakdown(ds, state)
 
     if pd_feas and dual_gap < duality_gap_threshold:
         status = Optimal()

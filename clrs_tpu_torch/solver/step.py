@@ -26,8 +26,11 @@ dtype, and every op dispatches on it (:mod:`clrs_tpu_torch.dd.arith`):
 
 The step-length bound takes the lowest eigenvalue from float64
 ``torch.linalg.eigvalsh`` with ``eig_safety`` (the JAX package's off-TPU
-route; the card's f64 is IEEE). The scalar-pack parts stay plain ops, as
-in the JAX package.
+route; the card's f64 is IEEE). With the module global
+``_STEPLEN_VERIFIED = True`` (the JAX package's own override) f32 words
+take the JAX package's TPU route instead: f32 eigenpairs certified with
+exact limb GEMMs (:func:`_eig_lo_certified`). The scalar-pack parts stay
+plain ops, as in the JAX package.
 
 A step is a Python function over device tensors, split at its
 eigensolver into a head and a tail (:func:`make_step_parts`);
@@ -60,13 +63,14 @@ from ..compile.sdp import ClusteredLowRankSDP
 from ..dd import core as host_core
 from ..dd import kernels as dk
 from ..dd import linalg as dl
+from ..dd import ops as O
 from ..dd.arith import dd_add, dd_div, dd_mul, dd_neg, dd_sub
 from ..dd.limb_gemm import fx_matmul, host_precompute
 from ..device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["DeviceSDP", "make_step_parts", "make_step_body", "make_step",
            "make_run_chunk", "make_assess", "initial_state", "zero_info",
-           "eig_lowest", "sharded"]
+           "eig_lowest", "eig_pairs", "step_eig", "sharded"]
 
 F32 = torch.float32
 F64 = torch.float64
@@ -948,12 +952,86 @@ def eig_lowest(mats):
     return [torch.linalg.eigvalsh(A)[:, 0] for A in mats]
 
 
+# The step-length route (clrs_tpu/solver/step.py:1083-1093): None picks as
+# the JAX package does off a TPU, the float64 eigvalsh route; True takes
+# the JAX package's TPU route on f32 words, f32 eigenpairs certified with
+# exact limb GEMMs. Tests and chip_smoke.py set it, as the JAX package's
+# tests set its own.
+_STEPLEN_VERIFIED = None
+
+
+def _use_verified_eig():
+    if _STEPLEN_VERIFIED is not None:
+        return _STEPLEN_VERIFIED
+    return False        # the port runs on no TPU
+
+
+def _eig_input_f32(W2):
+    """The certified route's eigensolver input (clrs_tpu/solver/step.py:
+    1124-1127): the words of W2 summed in f32 in the JAX order and
+    symmetrized, with every member that is not finite set to zero, as
+    :func:`_eig_input` does. Returns (matrices, bad [2L])."""
+    A32 = W2[0]
+    for c in W2[1:]:
+        A32 = A32 + c
+    A32 = 0.5 * (A32 + A32.transpose(-1, -2))
+    bad = ~torch.isfinite(A32).all(dim=-1).all(dim=-1)
+    return torch.where(bad[:, None, None], 0.0, A32), bad
+
+
+def eig_pairs(mats):
+    """f32 eigenpairs (ascending eigenvalues [B, n], eigenvectors as
+    columns [B, n, n]) of each matrix batch: the certified route's
+    candidate decompositions. Like :func:`eig_lowest`, it runs eagerly
+    between the captured segments on the card."""
+    return [tuple(torch.linalg.eigh(A)) for A in mats]
+
+
+def step_eig(mats):
+    """The eager eigensolver between a step's head and tail: the certified
+    route's f32 eigenpairs for f32 matrices, else the lowest eigenvalues."""
+    if mats and mats[0].dtype == F32:
+        return eig_pairs(mats)
+    return eig_lowest(mats)
+
+
+def _eig_lo_certified(W2, lam, V):
+    """Certified lower bound on the lowest eigenvalue of each member of the
+    symmetrized W2 [2L, n, n] from its f32 eigenpairs (lam, V)
+    (clrs_tpu/solver/step.py:1096-1143, after its eigh): with
+    E = A - V diag(lam) V^T and delta = ||V^T V - I||,
+    lambda_min(A) >= lam_min - |lam_min| delta - ||E||_2. V diag(lam) is an
+    exact two-word product, E and V^T V come from exact limb GEMMs (an
+    nw-word by one-word product, and one-word operands into two words,
+    batched under the route decision the JAX package's vmap makes per
+    member), and both norms are bounded by Frobenius norms in f64."""
+    nw = len(W2)
+    lmin = lam[:, 0].to(F64)
+    p, e = O.two_prod(V, lam[:, None, :])
+    z = torch.zeros_like(p)
+    VD = (p, e) + (z,) * (nw - 2)
+    Vt = V.transpose(-1, -2)
+    M = fx_matmul(VD, (Vt,))
+    E = dd_sub(W2, M)
+    Ev = _f64sum(E)
+    eta = torch.sqrt((Ev * Ev).sum(dim=(-2, -1)))
+    G = fx_matmul((Vt,), (V,), nw=2)
+    G0 = G[0] - torch.eye(V.shape[-1], dtype=V.dtype, device=V.device)
+    Gv = G0.to(F64) + G[1].to(F64)
+    delta = torch.sqrt((Gv * Gv).sum(dim=(-2, -1)))
+    slack = 1.0 + 1e-12                              # norm-evaluation margin
+    return lmin - slack * (lmin.abs() * delta + eta)
+
+
 def _step_mats(ds, dX, dY, cholX, cholY):
     """The head half of the step lengths (solver.jl:1618-1693): per
     non-scalar size class, the eigensolver's input for the X and Y sides
     as one [2L] batch, L^-1 dM L^-T with the factors of this iteration.
-    Returns (matrices, bad masks), class by class."""
-    mats, bads = [], []
+    Returns (matrices, bad masks, words), class by class; on the certified
+    route (f32 words) the matrices are f32 and the words are each class's
+    W2, which the tail certifies against; else the words are None."""
+    verified = _use_verified_eig() and ds.dtype == F32
+    mats, bads, words = [], [], [] if verified else None
     for j, cl in enumerate(ds.clusters):
         for ki, k in enumerate(cl.classes):
             if k.n == 1:
@@ -961,10 +1039,23 @@ def _step_mats(ds, dX, dY, cholX, cholY):
             L2 = _cat(cholX[j][ki], cholY[j][ki])
             W = dl.b_solve_tril(L2, _cat(dX[j][ki], dY[j][ki]))
             W2 = dl.b_solve_tril(L2, dl.dd_transpose(W))
-            A, bad = _eig_input(W2)
+            A, bad = (_eig_input_f32 if verified else _eig_input)(W2)
             mats.append(A)
             bads.append(bad)
-    return mats, bads
+            if verified:
+                words.append(W2)
+    return mats, bads, words
+
+
+def _certify(words, lows, eig_safety):
+    """The eigensolver's results as :func:`_step_lengths` takes them, with
+    its eig_safety: on the certified route (``words``, the W2 of each class
+    from :func:`_step_mats`) the certified bounds of the eigenpairs and
+    None; else the lowest eigenvalues as they are and ``eig_safety``."""
+    if words is None:
+        return lows, eig_safety
+    return [_eig_lo_certified(W2, lam, V)
+            for W2, (lam, V) in zip(words, lows)], None
 
 
 def _step_lengths(ds, state, dX, dXs, dY, dYs, lows, bads, gamma,
@@ -973,7 +1064,9 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, lows, bads, gamma,
     ``lows``/``bads`` are :func:`eig_lowest` and the masks of
     :func:`_step_mats`, class by class; the lower bound is the lowest
     eigenvalue less eig_safety * (1 + |lambda_min|), NaN for a member that
-    was not finite."""
+    was not finite. ``eig_safety=None``: ``lows`` are lower bounds already
+    (the certified route's, :func:`_eig_lo_certified`, which the JAX
+    package uses as they stand, clrs_tpu/solver/step.py:1150-1151)."""
     min_d, min_p = inf, inf
     lows, bads = iter(lows), iter(bads)
 
@@ -991,7 +1084,8 @@ def _step_lengths(ds, state, dX, dXs, dY, dYs, lows, bads, gamma,
                 min_p = scalar_min(min_p, Yb, dY[j][ki], k.maskdiag[:, 0])
                 continue
             lam = next(lows)
-            lo = lam - eig_safety * (1.0 + lam.abs())
+            lo = lam if eig_safety is None else \
+                lam - eig_safety * (1.0 + lam.abs())
             lo = torch.where(next(bads), float("nan"), lo)
             min_d = torch.minimum(min_d, lo[:k.L].min())
             min_p = torch.minimum(min_p, lo[k.L:].min())
@@ -1064,8 +1158,9 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                     correctoronly: bool = False, eig_safety: float = 1e-12,
                     plmap: bool = True):
     """One iteration split at its eigensolver: ``head(state, pd_feas_prev)
-    -> (mid, mats)`` runs up to the step-length matrices, :func:`eig_lowest`
-    (mats) gives their lowest eigenvalues, and ``tail(state, mid, lows) ->
+    -> (mid, mats)`` runs up to the step-length matrices, :func:`step_eig`
+    (mats) gives their lowest eigenvalues (or, on the certified route, their
+    f32 eigenpairs, which the tail certifies), and ``tail(state, mid, lows) ->
     (new_state, info)`` runs the rest; info values are device tensors.
     ``pd_feas_prev`` is a bool tensor on the device. Neither half reads a
     device value on the host or copies host data to the device, so each
@@ -1311,12 +1406,13 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         dx, dy, dX, dY, dXs, dYs = search_direction(Rc, Rc_s)
 
         # the step-length matrices (the eigensolver's input)
-        mats, bads = _step_mats(ds, dX, dY, cholX, cholY)
+        mats, bads, words = _step_mats(ds, dX, dY, cholX, cholY)
         if ds.comm is not None:
             ok, ok_X, ok_S = (ds.comm.all_and(f) for f in (ok, ok_X, ok_S))
         mid = {
             "dx": dx, "dy": dy, "dX": dX, "dY": dY, "dXs": dXs, "dYs": dYs,
-            "bads": bads, "mu": _f64sum(mu), "dual_error": dual_error,
+            "bads": bads, "words": words, "mu": _f64sum(mu),
+            "dual_error": dual_error,
             "primal_error": primal_error, "P_error": P_error,
             "p_error": p_error, "pd_feas": pd_feas_now, "beta_c": beta_c,
             "ok": ok, "ok_X": ok_X, "ok_S": ok_S, "ok_Q": okq,
@@ -1324,9 +1420,10 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         return mid, mats
 
     def tail(state, mid, lows):
+        lows, safety = _certify(mid["words"], lows, eig_safety)
         alpha_d, alpha_p = _step_lengths(
             ds, state, mid["dX"], mid["dXs"], mid["dY"], mid["dYs"], lows,
-            mid["bads"], gamma, eig_safety, inf, one)
+            mid["bads"], gamma, safety, inf, one)
         pd_feas_now = mid["pd_feas"]
         if safe_step:
             a = torch.minimum(alpha_p, alpha_d)
@@ -1372,7 +1469,7 @@ def make_step_body(ds: DeviceSDP, **kw):
 
     def step(state, pd_feas_prev):
         mid, mats = head(state, _as_flag(pd_feas_prev, ds.device))
-        return tail(state, mid, eig_lowest(mats))
+        return tail(state, mid, step_eig(mats))
 
     return step
 
@@ -1454,7 +1551,7 @@ def make_step(ds: DeviceSDP, **kw):
             bufs["pd"] = _as_flag(pd_feas_prev, ds.device).clone()
             S, pd = bufs["state"], bufs["pd"]
             bufs["split"] = GraphSplit(
-                lambda: head(S, pd), eig_lowest,
+                lambda: head(S, pd), step_eig,
                 lambda mid, lows: tail(S, mid, lows))
         _tree_map(_assign, bufs["state"], state)
         _assign(bufs["pd"], pd_feas_prev)
@@ -1554,7 +1651,7 @@ def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
                  flag.clone())
         loop["carry"] = carry
         S, pd = carry[0], carry[1]
-        parts = (lambda: head(S, pd), eig_lowest,
+        parts = (lambda: head(S, pd), step_eig,
                  lambda mid, lows: tail_chunk(carry, mid, lows))
         if not graphs:
             from .graph import EagerSplit

@@ -56,6 +56,33 @@ DIFFERENCES = {
         "-         t, self.errorcode) = solvesdp(problem, **kwargs)",
         "+         t, self.errorcode) = solvesdp(problem, device=device, "
         "**kwargs)"],
+    # the public rounding entries give the caller's Decimal context back
+    # (find_field.py::_refine_root raises the precision; ROADMAP C3): the
+    # JAX copy leaves it raised for every later host compile
+    "round/rounding.py": [
+        "+import functools",
+        "+from decimal import localcontext",
+        "+def keeps_decimal_context(fn):",
+        '+    """Run ``fn`` in a copy of the caller\'s Decimal context, so '
+        'that the',
+        "+    precision the rounding sets (find_field.py::_refine_root) does "
+        "not",
+        '+    outlast the call and change every later host compile."""',
+        "+    @functools.wraps(fn)",
+        "+    def wrapper(*args, **kwargs):",
+        "+        with localcontext():",
+        "+            return fn(*args, **kwargs)",
+        "+",
+        "+    return wrapper",
+        "+",
+        "+",
+        "+@keeps_decimal_context"],
+    "round/find_field.py": [
+        "-from .rounding import RoundingSettings, _dd_rref_colpivot, _to_f64",
+        "+from .rounding import (RoundingSettings, _dd_rref_colpivot, _to_f64,",
+        "+                       keeps_decimal_context)",
+        "+@keeps_decimal_context",
+        "+@keeps_decimal_context"],
 }
 # dd/core.py keeps the numpy half and drops the JAX branches, the
 # optimisation barriers and the TPU routing throughout (some 250 diff
@@ -70,7 +97,7 @@ IDENTICAL = (
     "solver/status.py", "utils/hp.py", "exact/rational.py",
     "exact/field.py", "exact/hnf.py", "exact/lll.py",
     "model/linearsystem.py", "model/sdpa.py", "round/__init__.py",
-    "round/rounding.py", "round/find_field.py", "native/rref_modp.cpp",
+    "native/rref_modp.cpp",
     "frontend/__init__.py")
 
 

@@ -111,8 +111,10 @@ def test_rsqrt_sqrt_within_seed_tolerance(nw, xla_subnormals):
 def test_port_imports_no_jax():
     """`import clrs_tpu_torch`, one CPU IPM step on each substrate (f32
     and f64 words), the exact-certificate path (the GW max-cut solved on
-    the CPU and rounded to 9/4 by exact_solution) and `clrs_tpu_torch.parallel`
-    with a mesh of one gloo rank, with sympy blocked, load
+    the CPU and rounded to 9/4 by exact_solution), `clrs_tpu_torch.parallel`
+    with a mesh of one gloo rank, and the per-phase timing with the
+    certified step-length route on a Cohn-Elkies problem, with sympy
+    blocked, load
     no JAX module, no sympy module, no clrs_tpu module under its own name,
     and no module whose file lies in the clrs_tpu/ source directory under
     any name: the port keeps its own copies of the host layers."""
@@ -154,6 +156,13 @@ with tempfile.TemporaryDirectory() as tmp:
                             rank=0, world_size=1)
     assert parallel.make_mesh(1).size() == 1
     dist.destroy_process_group()
+from clrs_tpu_torch.examples import cohnelkies_problem
+from clrs_tpu_torch.solver import step as TS, timing
+TS._STEPLEN_VERIFIED = True
+ds = DeviceSDP(ct.ClusteredLowRankSDP(cohnelkies_problem(8, 1)), nw=5,
+               device="cpu")
+assert len(timing.phase_breakdown(ds, initial_state(ds, 10.0, 10.0),
+                                  reps=1)) == 8
 jax_src = (Path.cwd() / "clrs_tpu").resolve()
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "clrs_tpu", "sympy")))

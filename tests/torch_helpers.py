@@ -193,13 +193,18 @@ def _exact_matrix(m):
     return [[_exact(v) for v in row] for row in a.reshape(a.shape[0], -1)]
 
 
+def _key(k):
+    """A block name, a Block of either package as a plain tuple."""
+    return ("block", k.l, k.r, k.s) if type(k).__name__ == "Block" else k
+
+
 def problem_data(problem):
     """A Problem of either package as plain exact data: the sense, then
     the objective and each constraint as (constant, {name: matrix of
     Fractions}, {free name: Fraction}, samples)."""
     def part(c):
         return (_exact(c.constant),
-                {k: _exact_matrix(m) for k, m in c.matrixcoeff.items()},
+                {_key(k): _exact_matrix(m) for k, m in c.matrixcoeff.items()},
                 {k: _exact(v) for k, v in c.freecoeff.items()},
                 [[_exact(x) for x in np.atleast_1d(np.asarray(s, object))]
                  for s in getattr(c, "samples", [])])
@@ -232,10 +237,7 @@ def built_problem(module, build, *args, **kwargs):
 def exact_entries(sol):
     """An exact solution's entries by key, field elements as their
     coefficient lists, comparable across the packages' classes."""
-    def key(k):
-        return ("block", k.l, k.r, k.s) if type(k).__name__ == "Block" else k
-
-    out = {key(k): [[_exact(v) for v in row] for row in np.asarray(m)]
+    out = {_key(k): [[_exact(v) for v in row] for row in np.asarray(m)]
            for k, m in sol.matrixvars.items()}
     if hasattr(sol, "freevars"):
         out["free"] = {k: _exact(v) for k, v in sol.freevars.items()}

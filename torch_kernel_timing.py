@@ -8,7 +8,8 @@ n)); the split route's int8 product and cascade, the fused limb GEMM and
 the limb extraction through ``clrs_tpu_torch.dd.limb_gemm`` (their only
 caller; ``--kernel int8_gemm`` records (B, M, K, N), ``--kernel cascade``
 (nw, B, m, n, form), ``--kernel limb_gemm`` (nw, B, m, k, n), ``--kernel
-limb_extract`` (nw, B, d0, d1, side, layout)); the three pl_map chains
+limb_extract`` (nw, B, d0, d1, side, layout, L), L the limbs of the product
+the operand goes into); the three pl_map chains
 through ``clrs_tpu_torch.solver.step`` (``--kernel plmap`` records (chain,
 nw, L, n), chain one of add, axpy, residual, residual_corr). Then it times
 the kernel at every recorded shape on random inputs of that shape with
@@ -22,7 +23,8 @@ diagonal sums (form ``diags``) drawn from +-2^24, the chains on standard
 normal [L, n, n] words with mu and alpha as [L, 1, 1] broadcast scalars.
 ``--kernel`` takes a comma list (one solve records them all); ``--shape
 kernel:a,b,...`` times a shape of that kernel besides (``--d 0``: no
-solve, only those). Prints one JSON line per kernel: per shape the calls
+solve, only those; an extraction's L may be left out, the L of an nw-word
+product). Prints one JSON line per kernel: per shape the calls
 per iteration, ms per call, ms per iteration and the bound of
 chip_smoke.py's ``cost_*`` (the least time the card could take), and the
 sums (per form for the solve, per chain for the chains). The package and
@@ -61,7 +63,7 @@ RECORDED = {"tri": ("dd.linalg", "K", ("tri_solve_batched",)),
 FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
           "int8_gemm": ("B", "M", "K", "N"),
           "limb_gemm": ("nw", "B", "m", "k", "n"),
-          "limb_extract": ("nw", "B", "d0", "d1", "side", "layout"),
+          "limb_extract": ("nw", "B", "d0", "d1", "side", "layout", "L"),
           "cascade": ("nw", "B", "m", "n", "form"),
           "plmap": ("chain", "nw", "L", "n")}
 
@@ -81,9 +83,9 @@ def _shape(kernel, wrapper, args, kw):
         Bt, _, m, k = a3.shape
         return (nw, Bt, m, k, b3.shape[3])
     if kernel == "limb_extract":
-        words, _, side = args[:3]
+        words, L, side = args[:3]
         layout = kw.get("layout", args[3] if len(args) > 3 else "limb")
-        return (len(words),) + tuple(words[0].shape) + (side, layout)
+        return (len(words),) + tuple(words[0].shape) + (side, layout, L)
     if kernel == "cascade":
         C, eab, nw = args
         return (nw,) + tuple(eab.shape) + ("c",)
@@ -163,9 +165,8 @@ def inputs(kernel, key, rng, S, K):
         return ("limb_gemm", K.limb_gemm, K.limb_gemm_plain,
                 (A3, B3, eab, nw))
     if kernel == "limb_extract":
-        nw, B, d0, d1, side, layout = key
+        nw, B, d0, d1, side, layout, L = key
         w = S._words(rng, (B, d0, d1), nw, True)
-        L, _ = K.limb_params(nw)
         return ("limb_extract", K.limb_extract, K.limb_extract_plain,
                 (w, L, side, layout))
     if kernel == "cascade":
@@ -208,9 +209,8 @@ def _bound_ms(kernel, key, S, K):
                "residual_corr": 2 * nw + 2 * add}[chain]
         args = _chain_args(key, np.random.default_rng(0), S)
         return S.bound(*S.cost_plmap(args, nw, L * n * n, ops))[0]
-    nw, B, d0, d1, side, _ = key
-    return S.bound(*S.cost_extract(nw, K.limb_params(nw)[0], B, d0, d1,
-                                   side))[0]
+    nw, B, d0, d1, side, _, L = key
+    return S.bound(*S.cost_extract(nw, L, B, d0, d1, side))[0]
 
 
 def record(kernel, run):
@@ -261,6 +261,10 @@ def main():
     for k in kernels + [k for k, _ in extra]:
         if k not in RECORDED:
             ap.error(f"unknown kernel {k!r}")
+    # an extraction's L defaults to the L of an nw-word product
+    extra = [(k, key + (-(-(24 * key[0] + 21) // 7),)
+              if k == "limb_extract" and len(key) == 6 else key)
+             for k, key in extra]
     sys.path.insert(0, str(Path(__file__).resolve().parent))
 
     import numpy as np
