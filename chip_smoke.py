@@ -104,7 +104,14 @@ Phases (one line each; any failure exits non-zero):
  16. solver/timing.py: phase_breakdown at delsarte(3,95), f32 and f64, and
      solvesdp(testing=True)'s timing line and table at delsarte(3,10);
      then every kernel against its plain version at every new shape that
-     phases 14-16 gave its wrapper.
+     phases 14-16 gave its wrapper;
+ 17. the benchmark (torch_bench.py beside this script): bench_problem at
+     delsarte(3,10), f32 nw 5 and f64 nw 2, a few iterations a chunk:
+     every chunk commits all its iterations with code 0, the int8 and f64
+     tensor-core ops per iteration are positive and both MFUs lie in
+     (0, 1]; then solvesdp(substrate=None) on the card gives phase 4's
+     solve word for word (code, iterations, objective). The (3,127) tiers
+     are torch_bench.py's own (their host build alone takes minutes).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -1101,7 +1108,11 @@ def solve_delsarte_3_10(problem, sync_every=1):
     if n_it != ITERATIONS_3_10:
         fail(f"{label} took {n_it} iterations, not {ITERATIONS_3_10}")
     check_counts(label, counts, PATH_3_10, n_it)
+    SOLVES_3_10[sync_every] = (code, n_it, obj)
     return counts
+
+
+SOLVES_3_10 = {}   # sync_every -> (code, iterations, objective) of phase 4
 
 
 def delsarte_3_95(problem):
@@ -2207,6 +2218,50 @@ def phase_tables(card, problem_3_10, problem_3_95):
 # so their times measure that transport, not a sharded solve's speed)
 # ---------------------------------------------------------------------------
 
+def bench_phase(problem_3_10):
+    """Phase 17: torch_bench.bench_problem at delsarte(3,10) on both
+    substrates, then solvesdp(substrate=None) against phase 4's solve."""
+    import torch
+
+    import clrs_tpu_torch as ct
+    import torch_bench
+
+    n_iters, reps = 4, 3
+    for substrate, nw, kind, mfu in (
+            ("f32", 5, "int8", "mfu_vs_h100_int8_peak"),
+            ("f64", 2, "f64", "mfu_vs_h100_fp64_tc_peak")):
+        r = torch_bench.bench_problem(problem_3_10, n_iters=n_iters, nw=nw,
+                                      substrate=substrate, reps=reps,
+                                      report_mfu=True)
+        print(f"bench delsarte(3,10) {substrate} nw {nw}: "
+              f"{r['iterations_per_s']:.2f} it/s (min "
+              f"{r['iterations_per_s_min']:.2f}, max "
+              f"{r['iterations_per_s_max']:.2f}), {r['committed']} "
+              f"iterations committed, capture {r['capture_s']:.2f} s, "
+              f"{kind} ops/iteration {r[kind + '_ops_per_iter']}, {mfu} "
+              f"{r[mfu]:.3e}", flush=True)
+        if r["committed"] != n_iters * reps:
+            fail(f"bench {substrate}: {r['committed']} iterations committed"
+                 f", not {n_iters * reps}")
+        if not r[kind + "_ops_per_iter"] > 0 or not 0 < r[mfu] <= 1:
+            fail(f"bench {substrate}: ops {r[kind + '_ops_per_iter']}, "
+                 f"{mfu} {r[mfu]}")
+    iters = []
+    status, _, primalsol, t, code = ct.solvesdp(
+        problem_3_10, substrate=None, omega_p=100, omega_d=100,
+        verbose=False, callback=lambda it, info: iters.append(it),
+        **{k: STEP_KW[k] for k in ("dual_error_threshold",
+                                   "primal_error_threshold")})
+    torch.cuda.synchronize()
+    got = (code, iters[-1] if iters else 0,
+           float(ct.objvalue(problem_3_10, primalsol)))
+    print(f"delsarte(3,10) substrate=None: code, iterations, objective "
+          f"{got}; phase 4 {SOLVES_3_10[1]}", flush=True)
+    if got != SOLVES_3_10[1]:
+        fail(f"substrate=None on the card gave {got}, phase 4 "
+             f"{SOLVES_3_10[1]}")
+
+
 PHASE13_DIR = "build/phase13"
 RANK_TIMEOUT_S = 600
 
@@ -2537,6 +2592,8 @@ def main():
     compare_path_shapes(ks, seen, new, phase="14-16")
     runs.update(new)
     lap("14-16 shapes")
+    bench_phase(problem_3_10)
+    lap("17")
     for name, r in ks.recs.items():
         r["launches_by_run"] = {k: c[name] for k, c in runs.items()}
         r["launches"] = sum(r["launches_by_run"].values())

@@ -66,6 +66,25 @@ def gemm_route(m, k, n, nw):
     return "split"
 
 
+# When set to a list, every fx_matmul call appends the int8 tensor-core ops
+# it issues (2 per MAC, the limb blowup included; clrs_tpu/dd/limb_gemm.py:
+# 149-164): the fused route multiplies only the limb pairs of the ndiag
+# diagonals it keeps, the split route all L^2 pairs, as int8_gemm does over
+# [B, L m, k] x [B, k, L n]. torch_bench.py runs one step with it set. The
+# batch is the operands' explicit leading axis, so the JAX package's
+# mac_scale, which undoes vmap hiding the batch, has no counterpart here.
+_MAC_COUNTER = None
+
+
+def _count_macs(L, ndiag, m, n, k, fused, batch=1):
+    if fused:
+        npairs = sum(min(d, L - 1) - max(0, d - L + 1) + 1
+                     for d in range(ndiag))
+    else:
+        npairs = L * L
+    _MAC_COUNTER.append(2 * npairs * m * n * k * batch)
+
+
 def fx_matmul(a, b, nw=None, pre_a=None, pre_b=None, route=None):
     """Batched f32-expansion GEMM [B, m, k] @ [B, k, n] -> nw words [B, m, n].
 
@@ -97,6 +116,8 @@ def fx_matmul(a, b, nw=None, pre_a=None, pre_b=None, route=None):
             raise ValueError(f"fx_matmul: limb count {pre[0].shape[1]} does "
                              f"not match nw={nw} (L={L})")
     route = route or gemm_route(m, k, n, nw)
+    if _MAC_COUNTER is not None:
+        _count_macs(L, K.limb_params(nw)[1], m, n, k, route == "fused", Bt)
     if route == "fused":
         A3, ea = K.limb_extract(a, L, "a") if pre_a is None else pre_a
         B3, eb = K.limb_extract(b, L, "b") if pre_b is None else pre_b

@@ -25,6 +25,8 @@ clrs_tpu/solver/step.py:148-157).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .f64ops import renorm, vec_sum
@@ -40,6 +42,12 @@ _POW2_STEP = 1022           # |e| of one bit-built power-of-two factor
 
 def _ceil_log2(n: int) -> int:
     return max(0, (int(n) - 1).bit_length())
+
+
+# When set to a list, every slice_matmul appends the f64 tensor-core ops of
+# its one DGEMM, 2 B (T m) k (T n) over the batch B (the f64 counterpart of
+# limb_gemm._MAC_COUNTER; torch_bench.py runs one step with it set).
+_OP_COUNTER = None
 
 
 def slice_params(k, nw):
@@ -110,6 +118,8 @@ def slice_matmul(a, b, nw=None):
         z = torch.zeros(batch + (m, n), dtype=F64, device=a[0].device)
         return (z,) * nw
     sbits, nsl, bits_needed = slice_params(k, nw)
+    if _OP_COUNTER is not None:
+        _OP_COUNTER.append(2 * math.prod(batch) * (nsl * m) * k * (nsl * n))
     ea = row_exponents(a[0], -1)                  # [..., M, 1]
     eb = row_exponents(b[0], -2)                  # [..., 1, N]
     asc = tuple(mul_pow2(c, -ea) for c in a)

@@ -35,7 +35,7 @@ from .step import (F32, F64, DeviceSDP, _w, initial_state, make_assess,
                    make_run_chunk, sharded, zero_info)
 
 __all__ = ["solvesdp", "SolverFailure", "SaveSettings", "word_count",
-           "word_count_f64"]
+           "word_count_f64", "pick_substrate"]
 
 
 class SolverFailure(Exception):
@@ -81,6 +81,24 @@ def word_count_f64(prec):
     return -(-int(prec) // 53)
 
 
+def pick_substrate(substrate, device):
+    """The substrate a solve on ``device`` runs: ``substrate`` itself unless
+    it is None, the pick by platform (the JAX package's rule,
+    clrs_tpu/solver/ipm.py:104-105, put on this platform).
+
+    - On the CPU: "f64", as the JAX package picks off the TPU.
+    - On the card: "f32", the substrate torch_bench.py measures faster at
+      both of its problems on an NVIDIA H100 80GB HBM3 at 700.00 W (f32
+      nw 5 against f64 nw 2, graph iterations, medians of three chunks:
+      delsarte(3,10) 14.560 against 14.220 it/s, within the f64 chunks'
+      spread of 11.28-14.72; delsarte(3,127) 99.68 against 678.84 ms an
+      iteration, 6.8 times faster; PERF.md §5). It is also the path of
+      the hand-written kernels."""
+    if substrate is not None:
+        return substrate
+    return "f32" if torch.device(device).type == "cuda" else "f64"
+
+
 def _to_host(info, **extra):
     """One device->host transfer for all scalar info entries (and any
     ``extra`` device scalars: a chunk's it_done, code and done)."""
@@ -119,9 +137,9 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     ``substrate="f64"`` runs f64 words (:func:`word_count_f64`), the JAX
     package's substrate off the TPU, whose f64 the card has as IEEE:
     slice GEMMs over one f64 GEMM each and PyTorch expansion ops, captured
-    in the same CUDA graphs. Any other substrate raises ValueError;
-    ``substrate=None`` (the reference's pick by platform) raises
-    NotImplementedError.
+    in the same CUDA graphs. ``substrate=None`` picks by platform
+    (:func:`pick_substrate`: "f32" on the card, "f64" on the CPU). Any
+    other substrate raises ValueError.
 
     ``mesh``, a 1-D ``torch.distributed`` DeviceMesh
     (:func:`clrs_tpu_torch.parallel.make_mesh`; any other object raises
@@ -152,9 +170,8 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     chunk (which captures the graphs on the card) against the later ones,
     and the per-phase table of :func:`.timing.print_breakdown` on the
     final state (clrs_tpu/solver/ipm.py:366-374)."""
-    if substrate is None:
-        raise NotImplementedError("substrate=None (a pick by platform) is "
-                                  "not ported; pass 'f32' or 'f64'")
+    dev = resolve_device(device)
+    substrate = pick_substrate(substrate, dev)
     if substrate not in ("f32", "f64"):
         raise ValueError(f"substrate must be 'f32' or 'f64', got "
                          f"{substrate!r}")
@@ -162,7 +179,6 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     if mesh is not None:
         from ..parallel.api import mesh_size
         mesh_div = mesh_size(mesh)
-    dev = resolve_device(device)
     if isinstance(problem, Problem):
         sdp = ClusteredLowRankSDP(problem)
     else:

@@ -113,8 +113,8 @@ def test_port_imports_no_jax():
     and f64 words), the exact-certificate path (the GW max-cut solved on
     the CPU and rounded to 9/4 by exact_solution), `clrs_tpu_torch.parallel`
     with a mesh of one gloo rank, and the per-phase timing with the
-    certified step-length route on a Cohn-Elkies problem, with sympy
-    blocked, load
+    certified step-length route on a Cohn-Elkies problem, and the port's
+    benchmark script torch_bench.py, with sympy blocked, load
     no JAX module, no sympy module, no clrs_tpu module under its own name,
     and no module whose file lies in the clrs_tpu/ source directory under
     any name: the port keeps its own copies of the host layers."""
@@ -163,6 +163,8 @@ ds = DeviceSDP(ct.ClusteredLowRankSDP(cohnelkies_problem(8, 1)), nw=5,
                device="cpu")
 assert len(timing.phase_breakdown(ds, initial_state(ds, 10.0, 10.0),
                                   reps=1)) == 8
+import torch_bench
+assert torch_bench.count_step_macs(ds, **torch_bench.STEP_KW) > 0
 jax_src = (Path.cwd() / "clrs_tpu").resolve()
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "clrs_tpu", "sympy")))
