@@ -18,7 +18,13 @@ Phases (one line each; any failure exits non-zero):
      least one per TPU kernel it replaces; every int8_gemm, limb_gemm and
      limb_extract shape of a delsarte(3,95) iteration) its time, its plain
      version's time (time_ms), its bound on this card (bound) and a library
-     call's time where one PyTorch call computes the same function;
+     call's time where one PyTorch call computes the same function; the
+     step's expansion arithmetic (csrc/expmap.cu: expmap<NW, OP> for add,
+     sub, mul, div, neg and symmetrize, tree_sum<NW>) bit for bit at every
+     shape one eager delsarte(3,10) and one delsarte(3,95) iteration give
+     its wrappers (recorded on the way), at nw 5 and 8, timed at the nw-5
+     (3,95) shapes, and at numel 0, (), stride-0 broadcasts, transposed
+     operands, odd n and tree columns past shared memory;
   4. delsarte(3, 10) through clrs_tpu_torch.solvesdp (the card is its
      default device; each iteration replays the step's CUDA graphs):
      error code 0, Optimal, objective within 1e-9 of 13.15831434739031 in
@@ -325,6 +331,37 @@ def cost_plmap(args, nw, numel, chain_ops):
     return nbytes, {"scalar": numel * chain_ops}
 
 
+def _numel(shape):
+    return math.prod(shape) if shape is not None else 0
+
+
+def cost_expmap(op, nw, xs, ys):
+    """One expansion op on contiguous words of shapes xs and ys (ys None:
+    one operand): each word read once, the broadcast output written once;
+    per output element the op's chain."""
+    out = xs if ys is None else tuple(
+        max(a, b) if min(a, b) else 0 for a, b in zip(
+            (1,) * (len(ys) - len(xs)) + tuple(xs),
+            (1,) * (len(xs) - len(ys)) + tuple(ys)))
+    if op == "symmetrize":
+        out = xs
+    per = {"add": exp_add_ops(nw), "sub": exp_add_ops(nw),
+           "mul": exp_mul_ops(nw), "div": exp_div_ops(nw), "neg": nw,
+           "symmetrize": exp_add_ops(nw) + nw}[op]
+    n_out = _numel(out)
+    return (4 * nw * (_numel(xs) + _numel(ys) + n_out),
+            {"scalar": n_out * per})
+
+
+def cost_tree_sum(nw, shape, axis):
+    """A tree sum along ``axis``: the input read once, one word set a
+    column written; n - 1 expansion adds a column."""
+    n = shape[axis]
+    M = _numel(shape) // n if n else _numel(shape[:axis] + shape[axis + 1:])
+    return (4 * nw * (_numel(shape) + M),
+            {"scalar": M * max(n - 1, 0) * exp_add_ops(nw)})
+
+
 def cost_chol(nw, B, n):
     """Both triangles of each trailing update: the next pivot row reads the
     upper one, and expansion products are not symmetric bit for bit."""
@@ -389,6 +426,21 @@ def _chain_words(rng, shape, nw, form, scale):
     if form == "shared":
         return tuple(c.expand(L, n, n) for c in _split(v[:1], nw))
     return _split(v, nw)
+
+
+def _exp_words(rng, shape, nw):
+    """nw f32 words of ``shape`` on the card, every word in use: word 0
+    over 16 decades, word k about 2^-24k of it (a nonzero leading word:
+    a divisor)."""
+    import numpy as np
+    import torch
+
+    w0 = np.asarray(rng.standard_normal(shape)) * 10.0 ** np.asarray(
+        rng.integers(-8, 8, shape))
+    ws = [w0] + [w0 * np.asarray(rng.standard_normal(shape)) * 2.0 ** (-24 * k)
+                 for k in range(1, nw)]
+    return tuple(torch.from_numpy(np.asarray(w, np.float32)).to("cuda")
+                 for w in ws)
 
 
 def _spd(rng, B, n, nw):
@@ -481,7 +533,10 @@ class Kernels:
 
     SRC = "clrs_tpu_torch/csrc/kernels.cu"
     SRC_OF = {"int8_gemm": "clrs_tpu_torch/csrc/int8_gemm.cu",
-              "chol_batched": "clrs_tpu_torch/csrc/chol.cu"}
+              "chol_batched": "clrs_tpu_torch/csrc/chol.cu",
+              **{name: "clrs_tpu_torch/csrc/expmap.cu" for name in (
+                  "ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
+                  "ew_symmetrize", "tree_sum")}}
     PL = "clrs_tpu/dd/pallas_linalg.py"
 
     def __init__(self):
@@ -1043,13 +1098,141 @@ def compare_product_word_counts(ks):
                  f"1 word, n {n}")
 
 
-# kernels each solve must launch: the split route and the chain kernels
-# at delsarte(3,10); at delsarte(3,95) the fused limb GEMM as well (its
-# Schur pairings exceed the JAX route threshold). cascade<FROM_DIAGS> has
-# no caller in either package (phase 3 holds it against its plain version).
+# the expansion arithmetic of the step: each f32 add, subtract, multiply,
+# divide, negation, symmetrization and tree sum one launch
+EXPANSION = ("ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
+             "ew_symmetrize", "tree_sum")
+# replaces: the XLA fusions of the jitted TPU step (not Pallas)
+EXPANSION_REPLACES = {
+    "ew_symmetrize": "clrs_tpu/dd/linalg.py:209 (dd_symmetrize over expops, "
+                     "XLA-fused in the jitted step clrs_tpu/solver/step.py:"
+                     "1621; not Pallas)",
+    "tree_sum": "clrs_tpu/dd/linalg.py:110-127 (dd_sum over expops.exp_add, "
+                "XLA-fused in the jitted step clrs_tpu/solver/step.py:1621; "
+                "not Pallas)"}
+for _name in EXPANSION[:5]:
+    EXPANSION_REPLACES[_name] = (
+        "clrs_tpu/dd/core.py:448-499 (expops." + _name.replace("ew_", "exp_")
+        + ", XLA-fused in the jitted step clrs_tpu/solver/step.py:1621; "
+        "not Pallas)")
+
+
+def _record_iteration(problem):
+    """{group: {shape key: calls}} of the expansion kernels in one eager
+    f32 nw-5 iteration of ``problem`` on the card (torch_kernel_timing.py's
+    ``record``)."""
+    import torch_kernel_timing as T
+    from clrs_tpu_torch.solver.step import initial_state, make_step_body
+
+    ds = device_sdp(problem)
+    step = make_step_body(ds, **STEP_KW)
+    seen = {}
+
+    def nest(gs):
+        if not gs:
+            step(initial_state(ds, 100.0, 100.0), False)
+            return
+        seen[gs[0]] = T.record(gs[0], lambda: nest(gs[1:]))
+
+    nest(["expmap", "tree_sum"])
+    return seen
+
+
+def _with_nw(group, key, nw):
+    return (key[0], nw) + key[2:] if group == "expmap" else (nw,) + key[1:]
+
+
+def compare_expansion_kernels(ks, problem_3_10, problem_3_95):
+    """Phase 3, the step's expansion arithmetic (csrc/expmap.cu): every
+    expmap<NW, OP> and tree_sum<NW> shape of one delsarte(3,10) and one
+    delsarte(3,95) iteration (recorded on the way to the wrappers), at nw 5
+    and 8, bit for bit against the plain versions, the nw-5 (3,95) shapes
+    timed; then the edges: numel 0, (), stride-0 broadcast views,
+    transposed operands, odd n and columns past shared memory."""
+    import numpy as np
+    import torch
+
+    import torch_kernel_timing as T
+    from clrs_tpu_torch.dd import kernels as K
+
+    rng = np.random.default_rng(13)
+    me = sys.modules[__name__]
+    t0 = time.time()
+    seen = {}
+    for label, problem in (("3,10", problem_3_10), ("3,95", problem_3_95)):
+        for group, keys in _record_iteration(problem).items():
+            for key, calls in keys.items():
+                seen.setdefault((group, key), {})[label] = calls
+    print(f"  expansion shapes of one iteration: {len(seen)} "
+          f"(recorded in {time.time() - t0:.1f} s)", flush=True)
+    def size(item):      # the largest shapes first: each kernel's summary
+        (group, key), _ = item          # line takes its first timed shape
+        shapes = key[2:] if group == "expmap" else key[1:2]
+        return -max(_numel(sh) for sh in shapes), repr(item)
+
+    for (group, key), calls in sorted(seen.items(), key=size):
+        for nw in (5, 8):
+            k = _with_nw(group, key, nw)
+            name, kernel, plain, args = T.inputs(group, k, rng, me, K)
+            timed = nw == 5 and "3,95" in calls
+            cost = (cost_expmap(*k) if group == "expmap"
+                    else cost_tree_sum(*k)) if timed else None
+            ks.check(name, EXPANSION_REPLACES[name], kernel, plain, args,
+                     dict(zip(T.FIELDS[group], k), calls_per_iteration=calls),
+                     cost, reps=LIMB_REPS, plain_reps=2)
+            ks.compared[group, k] = name
+    # the edges, untimed
+    for nw in (5, 8):
+        x = _exp_words(rng, (2, 22, 1), nw)
+        y = _exp_words(rng, (2, 22, 11), nw)
+        xt = tuple(c.transpose(1, 2) for c in _exp_words(rng, (2, 11, 11), nw))
+        yt = tuple(c.transpose(1, 2) for c in _exp_words(rng, (2, 11, 11), nw))
+        cases = {"stride-0 broadcast": (tuple(c.expand(2, 22, 11) for c in x),
+                                        y),
+                 "transposed": (xt, yt),
+                 "scalar": (_exp_words(rng, (), nw), _exp_words(rng, (), nw)),
+                 "scalar by row": (_exp_words(rng, (), nw),
+                                   _exp_words(rng, (1, 21), nw)),
+                 "numel 0": (_exp_words(rng, (2, 0, 5), nw),
+                             _exp_words(rng, (1, 5), nw))}
+        for kind, (a, b) in cases.items():
+            for op in ("add", "sub", "mul", "div"):
+                name = f"ew_{op}"
+                ks.check(name, EXPANSION_REPLACES[name], getattr(K, name),
+                         getattr(K, name + "_plain"), (a, b),
+                         dict(nw=nw, kind=kind))
+            ks.check("ew_neg", EXPANSION_REPLACES["ew_neg"], K.ew_neg,
+                     K.ew_neg_plain, (a,), dict(nw=nw, kind=kind))
+        for kind, a in (("transposed", xt),
+                        ("stride-0 broadcast",
+                         tuple(c[:1].expand(3, 11, 11) for c in xt)),
+                        ("numel 0", _exp_words(rng, (0, 4, 4), nw))):
+            ks.check("ew_symmetrize", EXPANSION_REPLACES["ew_symmetrize"],
+                     K.ew_symmetrize, K.ew_symmetrize_plain, (a,),
+                     dict(nw=nw, kind=kind))
+        for shape, axis in (((13, 4), 0), ((2, 7, 3), 1), ((1, 1, 1), 0),
+                            ((0, 4), 0), ((3, 0), 0), ((12001, 2), 0),
+                            ((9001, 1), 0), ((5, 2301), 1)):
+            a = _exp_words(rng, shape, nw)
+            if shape == (13, 4):
+                a = tuple(c.t().contiguous().t() for c in a)
+            route, _ = K.tree_sum_plan(shape[axis], nw, 1)
+            ks.check("tree_sum", EXPANSION_REPLACES["tree_sum"], K.tree_sum,
+                     K.tree_sum_plain, (a, axis),
+                     dict(nw=nw, shape=shape, axis=axis, route=route))
+    torch.cuda.synchronize()
+    print(f"  expansion kernels compared in {time.time() - t0:.1f} s",
+          flush=True)
+
+
+# kernels each solve must launch: the split route, the chain kernels and
+# the expansion arithmetic at delsarte(3,10); at delsarte(3,95) the fused
+# limb GEMM as well (its Schur pairings exceed the JAX route threshold).
+# cascade<FROM_DIAGS> has no caller in either package (phase 3 holds it
+# against its plain version).
 PATH_3_10 = ("limb_extract", "int8_gemm", "cascade_from_c", "chol_batched",
              "tri_solve_batched<false>", "tri_solve_batched<true>",
-             "plmap_add", "plmap_axpy", "plmap_residual")
+             "plmap_add", "plmap_axpy", "plmap_residual") + EXPANSION
 PATH_3_95 = PATH_3_10 + ("limb_gemm",)
 
 
@@ -2538,19 +2721,21 @@ def main():
           f"{build.build_seconds if build.build_seconds is not None else 'reused'})",
           flush=True)
 
-    print("kernels vs plain versions:", flush=True)
-    ks = compare_kernels()
-    compare_product_word_counts(ks)
-    torch.cuda.synchronize()
-    lap("1-3")
-
     from clrs_tpu_torch.examples import delsarte_problem
 
     problem_3_10 = delsarte_problem(3, 10, Fraction(1, 2))
-    counts_3_10 = solve_delsarte_3_10(problem_3_10)
     t0 = time.time()
     problem_3_95 = delsarte_problem(3, 95, Fraction(1, 2))
     print(f"delsarte(3,95): host build {time.time() - t0:.1f} s", flush=True)
+
+    print("kernels vs plain versions:", flush=True)
+    ks = compare_kernels()
+    compare_product_word_counts(ks)
+    compare_expansion_kernels(ks, problem_3_10, problem_3_95)
+    torch.cuda.synchronize()
+    lap("1-3")
+
+    counts_3_10 = solve_delsarte_3_10(problem_3_10)
     counts_3_95, rows_3_95 = delsarte_3_95(problem_3_95)
     runs = {"delsarte(3,10)": counts_3_10, "delsarte(3,95)": counts_3_95}
     graph_vs_eager(card, problem_3_10, problem_3_95, rows_3_95)

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("kernels.cu", "limb_gemm.cu", "int8_gemm.cu", "chol.cu")
+SOURCES = ("kernels.cu", "limb_gemm.cu", "int8_gemm.cu", "chol.cu", "expmap.cu")
 HEADERS = ("expansion.cuh", "common.cuh", "limbs.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false",
@@ -68,9 +68,16 @@ def _declare(lib):
     lib.clrs_plmap.argtypes = [i, ctypes.POINTER(vp),
                                ctypes.POINTER(ctypes.c_longlong),
                                ctypes.POINTER(i), vp, i, i, i, i, i, vp]
+    ll = ctypes.c_longlong
+    lib.clrs_expmap.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(ll),
+                                ctypes.POINTER(i), ctypes.POINTER(i), i, vp,
+                                ll, i, vp]
+    lib.clrs_tree_sum.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ll),
+                                  ctypes.POINTER(ll), i, ctypes.POINTER(i), i,
+                                  vp, ll, ll, ll, i, i, i, i, i, vp]
     for fn in (lib.clrs_limb_extract, lib.clrs_limb_gemm, lib.clrs_chol,
                lib.clrs_tri_solve, lib.clrs_int8_gemm, lib.clrs_cascade,
-               lib.clrs_plmap):
+               lib.clrs_plmap, lib.clrs_expmap, lib.clrs_tree_sum):
         fn.restype = i
     return lib
 

@@ -20,6 +20,8 @@ so a run can show which route it took (:func:`reset_counts`,
 | plmap_add          | plmap<NW, 0>               | pl_map, corrector sum (solver/step.py:1556)    |
 | plmap_axpy         | plmap<NW, 1>               | pl_map, state update (solver/step.py:1244)     |
 | plmap_residual     | plmap<NW, 2 or 3>          | pl_map, residual R (solver/step.py:1387)       |
+| ew_add, ew_sub, ew_mul, ew_div, ew_neg, ew_symmetrize | expmap<NW, OP> (expmap.cu) | XLA-fused expops (dd/core.py:448-499) |
+| tree_sum           | tree_sum<NW> (expmap.cu)   | XLA-fused dd_sum (dd/linalg.py:110-127)        |
 
 The kernels are built for nw = 5..8, the f32 substrate's ladder; besides,
 limb_extract takes operands of 1..8 words to the limb count L its caller
@@ -32,13 +34,16 @@ The two forms of tri_solve_batched are also counted apart
 
 Operands are word tuples with a leading batch axis, as the JAX kernels'
 [L] grid axis; most kernels take them stacked word-major, [B, nw, ...];
-the ``plmap_*`` chains read each word where it lies, through its strides.
+the ``plmap_*`` chains, the ``ew_*`` ops and ``tree_sum`` read each word
+where it lies, through its strides (``ew_*`` over any broadcast shape,
+``tree_sum`` along any axis).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -476,10 +481,74 @@ def tri_solve_plain(l, b, trans=False):
     return tuple(x)
 
 
+def pairwise_sum(x, axis, add):
+    """Tree sum of expansion words along ``axis`` with the expansion add
+    ``add`` (clrs_tpu/dd/linalg.py:110-127: the same pairing order): at
+    each level of n entries, entry i < n // 2 becomes add(entry i, entry
+    ceil(n / 2) + i) and the odd middle entry is carried. n = 0 gives
+    zeros."""
+    ws = [c.movedim(axis, 0) for c in x]
+    n = ws[0].shape[0]
+    while n > 1:
+        half = (n + 1) // 2
+        a = tuple(c[:n // 2] for c in ws)
+        b = tuple(c[half:half + n // 2] for c in ws)
+        s = add(a, b)
+        if n % 2 == 1:
+            s = tuple(torch.cat([sc, c[n // 2:half]], dim=0)
+                      for sc, c in zip(s, ws))
+        ws = list(s)
+        n = half
+    if ws[0].shape[0] == 0:
+        z = torch.zeros(ws[0].shape[1:], dtype=ws[0].dtype,
+                        device=ws[0].device)
+        return (z,) * len(ws)
+    return tuple(c[0] for c in ws)
+
+
+@_counted_plain
+def ew_add_plain(x, y):
+    return O.exp_add(x, y)
+
+
+@_counted_plain
+def ew_sub_plain(x, y):
+    return O.exp_sub(x, y)
+
+
+@_counted_plain
+def ew_mul_plain(x, y):
+    return O.exp_mul(x, y)
+
+
+@_counted_plain
+def ew_div_plain(x, y):
+    return O.exp_div(x, y)
+
+
+@_counted_plain
+def ew_neg_plain(x):
+    return O.exp_neg(x)
+
+
+@_counted_plain
+def ew_symmetrize_plain(x):
+    """(x + x^T) / 2 over the last two axes: exp_add, then an exact
+    halving of each word (clrs_tpu_torch/dd/linalg.py dd_symmetrize)."""
+    s = O.exp_add(x, tuple(c.transpose(-1, -2) for c in x))
+    return tuple(0.5 * c for c in s)
+
+
+@_counted_plain
+def tree_sum_plain(x, axis):
+    return pairwise_sum(x, axis, O.exp_add)
+
+
 _PLAIN = (limb_extract_plain, limb_gemm_plain, int8_gemm_plain,
           cascade_from_c_plain, cascade_from_diags_plain, chol_plain,
           tri_solve_plain, plmap_add_plain, plmap_axpy_plain,
-          plmap_residual_plain)
+          plmap_residual_plain, ew_add_plain, ew_sub_plain, ew_mul_plain,
+          ew_div_plain, ew_neg_plain, ew_symmetrize_plain, tree_sum_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -894,8 +963,258 @@ def tri_solve_batched(l, b, trans=False):
     return _unstack(x)
 
 
+# ---------------------------------------------------------------------------
+# the step's expansion arithmetic: one launch an op (csrc/expmap.cu)
+# ---------------------------------------------------------------------------
+
+EW_OPS = {"add": 0, "sub": 1, "mul": 2, "div": 3, "neg": 4, "symmetrize": 5}
+EW_MAX_DIMS = 6             # csrc/expmap.cu MAXD
+TREE_THREADS = 256          # csrc/expmap.cu TREE_THREADS
+TREE_SMEM = 227 * 1024      # csrc/common.cuh SMEM_MAX
+
+
+def coalesce(shape, strides):
+    """(dims, [strides of each word]) of ``shape`` and the element strides
+    of several words over it: dims of size 1 dropped, and neighbouring
+    dims merged where every word steps over the outer one as far as over
+    the whole inner one (one index then walks both)."""
+    dims, sts = [], [[] for _ in strides]
+    for d, size in enumerate(shape):
+        if size == 1:
+            continue
+        if dims and all(st[-1] == s[d] * size for st, s in zip(sts, strides)):
+            dims[-1] *= size
+            for st, s in zip(sts, strides):
+                st[-1] = s[d]
+        else:
+            dims.append(size)
+            for st, s in zip(sts, strides):
+                st.append(s[d])
+    return tuple(dims), [tuple(st) for st in sts]
+
+
+def _place(strides, slot, st):
+    """Write dims' strides ``st`` right-aligned into slot ``slot`` of a
+    [*, EW_MAX_DIMS] ctypes array, as csrc/expmap.cu reads them."""
+    base = (slot + 1) * EW_MAX_DIMS - len(st)
+    strides[base:base + len(st)] = st
+
+
+def _check_operands(ops, name):
+    nw = len(ops[0])
+    _check_nw(nw, name)
+    dev = ops[0][0].device
+    for op in ops:
+        if len(op) != nw:
+            raise ValueError(f"{name}: operands of {len(op)} and {nw} words")
+        for c in op:
+            if c.dtype != torch.float32 or c.device != dev:
+                raise ValueError(f"{name}: words must be float32 tensors on "
+                                 f"{dev}, got {c.dtype} on {c.device}")
+    return nw, dev
+
+
+def ew_pack(ops):
+    """The host arguments of one expmap launch on word tuples ``ops``, as
+    csrc/expmap.cu reads them: (output shape, numel, ctypes arrays of the
+    word pointers [2][8], their element strides [2][8][6] over the
+    coalesced dims, right-aligned, the operands' ``shared`` flags [2] and
+    the dims [6], left-aligned, and their count). Every word is broadcast
+    to the shape of all, as PyTorch broadcasts them (stride 0 on an axis
+    of size 1); an operand is ``shared`` where all its words have the same
+    strides. Raises where more than EW_MAX_DIMS dims remain."""
+    shape = tuple(O.broadcast_shapes(*(c.shape for op in ops for c in op)))
+    dims, sts = coalesce(shape, [
+        tuple(0 if n == 1 else s for n, s in
+              zip(shape, c.expand(shape).stride()))
+        for op in ops for c in op])
+    if len(dims) > EW_MAX_DIMS:
+        raise ValueError(f"expmap: {len(dims)} dims after coalescing "
+                         f"{shape}, at most {EW_MAX_DIMS}")
+    ptrs = (ctypes.c_void_p * (2 * _MAX_NW))()
+    strides = (ctypes.c_longlong * (2 * _MAX_NW * EW_MAX_DIMS))()
+    shared = (ctypes.c_int * 2)()
+    k = 0
+    for j, op in enumerate(ops):
+        st = sts[k:k + len(op)]
+        shared[j] = int(all(v == st[0] for v in st))
+        for w, (c, v) in enumerate(zip(op, st)):
+            ptrs[j * _MAX_NW + w] = c.data_ptr()
+            _place(strides, j * _MAX_NW + w, v)
+        k += len(op)
+    return (shape, math.prod(shape), ptrs, strides, shared,
+            (ctypes.c_int * EW_MAX_DIMS)(*dims), len(dims))
+
+
+def _ew_launch(op, ops, name):
+    """One expmap<NW, OP> launch on word tuples ``ops``: (the output words,
+    each [shape] of one [nw, shape] buffer; whether it launched: an empty
+    output launches nothing)."""
+    from .build import library
+
+    nw, dev = _check_operands(ops, name)
+    shape, numel, ptrs, strides, shared, dims, nd = ew_pack(ops)
+    out = torch.empty((nw,) + shape, dtype=torch.float32, device=dev)
+    words = tuple(out[k] for k in range(nw))
+    if numel == 0:
+        return words, False
+    if numel >= 1 << 31:
+        raise ValueError(f"{name}: {numel} elements, the kernel indexes "
+                         "them in 32 bits")
+    rc = library().clrs_expmap(EW_OPS[op], ptrs, strides, shared, dims, nd,
+                               _ptr(out), numel, nw, _stream())
+    _launched(rc, name)
+    return words, True
+
+
+def _ew(op, wrapper, plain, *ops):
+    name = wrapper.__name__
+    _refuse_f64(name, *ops)
+    if not _route(ops[0][0]):
+        return plain(*ops)
+    out, launched = _ew_launch(op, list(ops), name)
+    wrapper.launches += launched
+    return out
+
+
+def ew_add(x, y):
+    """x + y as one expmap launch; see :func:`ew_add_plain`."""
+    return _ew("add", ew_add, ew_add_plain, x, y)
+
+
+def ew_sub(x, y):
+    """x - y as one expmap launch; see :func:`ew_sub_plain`."""
+    return _ew("sub", ew_sub, ew_sub_plain, x, y)
+
+
+def ew_mul(x, y):
+    """x * y as one expmap launch; see :func:`ew_mul_plain`."""
+    return _ew("mul", ew_mul, ew_mul_plain, x, y)
+
+
+def ew_div(x, y):
+    """x / y as one expmap launch; see :func:`ew_div_plain`."""
+    return _ew("div", ew_div, ew_div_plain, x, y)
+
+
+def ew_neg(x):
+    """-x as one expmap launch; see :func:`ew_neg_plain`."""
+    return _ew("neg", ew_neg, ew_neg_plain, x)
+
+
+def ew_symmetrize(x):
+    """(x + x^T) / 2 as one expmap launch, x^T read through swapped
+    strides; see :func:`ew_symmetrize_plain`."""
+    _refuse_f64("ew_symmetrize", x)
+    if not _route(x[0]):
+        return ew_symmetrize_plain(x)
+    out, launched = _ew_launch("symmetrize", [
+        x, tuple(c.transpose(-1, -2) for c in x)], "ew_symmetrize")
+    ew_symmetrize.launches += launched
+    return out
+
+
+def tree_sum_plan(n, nw, M, smem=TREE_SMEM):
+    """How tree_sum<NW> sums M columns of n entries: ("shared", C), C
+    columns a block with every level in shared memory (enough columns
+    that the first level's adds fill a block's threads, as many as fit);
+    or, where one column's n nw 4 bytes exceed ``smem`` (n >= 2),
+    ("levels", (n, ceil(n / 2), ..., 2)), one launch a level."""
+    per_col = 4 * nw * n
+    if per_col > smem and n > 1:
+        levels, m = [], n
+        while m > 1:
+            levels.append(m)
+            m = (m + 1) // 2
+        return "levels", tuple(levels)
+    C = -(-TREE_THREADS // max(1, n // 2))
+    if per_col:
+        C = min(C, smem // per_col)
+    return "shared", max(1, min(C, M))
+
+
+def _tree_pack(ptrs, sts, axs, dims):
+    """ctypes arrays of a tree_sum launch's source: word pointers [8],
+    column strides [8][6] right-aligned, axis strides [8], the shared
+    flag, dims [6] and their count."""
+    st = (ctypes.c_longlong * (_MAX_NW * EW_MAX_DIMS))()
+    for k, s in enumerate(sts):
+        _place(st, k, s)
+    shared = int(all(s == sts[0] for s in sts)
+                 and all(a == axs[0] for a in axs))
+    return ((ctypes.c_void_p * _MAX_NW)(*ptrs), st,
+            (ctypes.c_longlong * _MAX_NW)(*axs), shared,
+            (ctypes.c_int * EW_MAX_DIMS)(*dims), len(dims))
+
+
+def tree_sum_launches(x, axis, smem=TREE_SMEM):
+    """(output words, the tree_sum<NW> launches) of a tree sum of f32 words
+    ``x`` along ``axis``, as csrc/expmap.cu's clrs_tree_sum takes them:
+    each launch (its source's arrays from :func:`_tree_pack`, the
+    destination tensor with its word, column and entry strides, M columns,
+    m entries, C columns a block, level). The shared route is one launch;
+    the level route runs in a scratch buffer [nw, M, ceil(n / 2)] (one of
+    the destinations), the last level into the output. Nothing is launched
+    where the output is empty."""
+    nw, dev = _check_operands([x], "tree_sum")
+    shape = tuple(O.broadcast_shapes(*(c.shape for c in x)))
+    words = [c.expand(shape).movedim(axis, -1) for c in x]
+    n, cshape = words[0].shape[-1], tuple(words[0].shape[:-1])
+    out = torch.empty((nw,) + cshape, dtype=torch.float32, device=dev)
+    M = out[0].numel()
+    if M == 0:
+        return tuple(out[k] for k in range(nw)), []
+    dims, sts = coalesce(cshape, [tuple(0 if size == 1 else st for size, st
+                                        in zip(cshape, w.stride()[:-1]))
+                                  for w in words])
+    if len(dims) > EW_MAX_DIMS:
+        raise ValueError(f"tree_sum: {len(dims)} column dims after "
+                         f"coalescing {cshape}, at most {EW_MAX_DIMS}")
+    if M >= 1 << 31 or M * ((n + 1) // 2) >= 1 << 31:
+        raise ValueError(f"tree_sum: {M} columns of {n}, the kernel indexes "
+                         "them in 32 bits")
+    src = _tree_pack([w.data_ptr() for w in words], sts,
+                     [w.stride(-1) if n > 1 else 0 for w in words], dims)
+    to_out = (out, M, 1, 0)
+    route, plan = tree_sum_plan(n, nw, M, smem)
+    if route == "shared":
+        launches = [src + to_out + (M, n, plan, 0)]
+    else:
+        half0 = (n + 1) // 2
+        scratch = torch.empty((nw, M, half0), dtype=torch.float32, device=dev)
+        in_scratch = _tree_pack([scratch[k].data_ptr() for k in range(nw)],
+                                [(half0,)] * nw, [1] * nw, (M,))
+        launches = []
+        for m in plan:
+            dst = to_out if m == 2 else (scratch, M * half0, half0, 1)
+            launches.append(src + dst + (M, m, 1, 1))
+            src = in_scratch
+    return tuple(out[k] for k in range(nw)), launches
+
+
+def tree_sum(x, axis):
+    """Tree sum along ``axis`` as tree_sum<NW> launches (one, or one a
+    level where a column exceeds shared memory); see
+    :func:`tree_sum_plain`."""
+    _refuse_f64("tree_sum", x)
+    if not _route(x[0]):
+        return tree_sum_plain(x, axis)
+    from .build import library
+
+    out, launches = tree_sum_launches(x, axis)
+    lib = library()
+    for args in launches:
+        dst = args[6]
+        rc = lib.clrs_tree_sum(*args[:6], _ptr(dst), *args[7:], len(x),
+                               _stream())
+        _launched(rc, "tree_sum")
+        tree_sum.launches += 1
+    return out
+
+
 _COUNTED = (limb_extract, limb_gemm, int8_gemm, cascade_from_c,
             cascade_from_diags, chol_batched, tri_solve_batched, plmap_add,
-            plmap_axpy, plmap_residual)
+            plmap_axpy, plmap_residual, ew_add, ew_sub, ew_mul, ew_div,
+            ew_neg, ew_symmetrize, tree_sum)
 _COUNTED_NAMES = frozenset(f.__name__ for f in _COUNTED)
 reset_counts()

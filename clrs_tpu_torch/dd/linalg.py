@@ -54,28 +54,17 @@ def dd_transpose(x):
 
 def dd_sum(x, axis):
     """Pairwise (tree) expansion sum along ``axis``
-    (clrs_tpu/dd/linalg.py:110-127: the same pairing order)."""
-    ws = [c.movedim(axis, 0) for c in x]
-    n = ws[0].shape[0]
-    while n > 1:
-        half = (n + 1) // 2
-        a = tuple(c[:n // 2] for c in ws)
-        b = tuple(c[half:half + n // 2] for c in ws)
-        s = dd_add(a, b)
-        if n % 2 == 1:
-            s = tuple(torch.cat([sc, c[n // 2:half]], dim=0)
-                      for sc, c in zip(s, ws))
-        ws = list(s)
-        n = half
-    if ws[0].shape[0] == 0:
-        z = torch.zeros(ws[0].shape[1:], dtype=ws[0].dtype,
-                        device=ws[0].device)
-        return (z,) * len(ws)
-    return tuple(c[0] for c in ws)
+    (clrs_tpu/dd/linalg.py:110-127: the same pairing order): f32 words
+    through :func:`.kernels.tree_sum` (one tree_sum<NW> launch for CUDA
+    words), f64 words by the f64 add level by level."""
+    if is_f64(x):
+        return K.pairwise_sum(x, axis, dd_add)
+    return K.tree_sum(x, axis)
 
 
 def dd_dot(x, y):
-    """Expansion trace inner product sum(x * y) over all elements."""
+    """Expansion trace inner product sum(x * y) over all elements (f32:
+    one expmap and one tree_sum launch for CUDA words)."""
     p = dd_mul(x, y)
     return dd_sum(tuple(c.reshape(-1) for c in p), axis=0)
 
@@ -106,6 +95,10 @@ def dd_matmul(a, b):
 
 
 def dd_symmetrize(x):
+    """(x + x^T) / 2 over the last two axes (f32: one expmap launch for
+    CUDA words)."""
+    if not is_f64(x):
+        return K.ew_symmetrize(x)
     s = dd_add(x, dd_transpose(x))
     return tuple(0.5 * c for c in s)            # exact scaling
 

@@ -808,3 +808,98 @@ def test_f64_graph_step_equals_eager_step_on_card(nw, cuda):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the step's expansion arithmetic (csrc/expmap.cu): expmap<NW, OP> and
+# tree_sum<NW> against their plain versions on the card, at the shape
+# classes of tests/test_torch_expmap.py
+# ---------------------------------------------------------------------------
+
+EW_SHAPES = [((), ()), ((1, 21), ()), ((2, 22, 1), (2, 22, 11)),
+             ((1, 21, 22), (1, 21, 1)), ((2, 22, 1, 22, 1), (2, 22, 1, 22, 1)),
+             ((2, 11, 11), "T"), ((2, 0, 5), (1, 5))]
+
+
+def _exp_words(rng, shape, nw, dev):
+    """nw f32 words on ``dev``: word 0 over 16 decades, word k ~2^-24k of
+    it."""
+    w0 = np.asarray(rng.standard_normal(shape)) * 10.0 ** np.asarray(
+        rng.integers(-8, 8, shape))
+    ws = [w0] + [w0 * np.asarray(rng.standard_normal(shape))
+                 * 2.0 ** (-24 * k) for k in range(1, nw)]
+    return tuple(torch.from_numpy(np.asarray(w, np.float32)).to(dev)
+                 for w in ws)
+
+
+def _bits(xs, ys):
+    return len(xs) == len(ys) and all(
+        a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32))
+        for a, b in zip(xs, ys))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xs, ys", EW_SHAPES)
+@pytest.mark.parametrize("nw", [5, 8])
+def test_expmap_matches_plain_on_card(nw, xs, ys, cuda):
+    """Each expmap<NW, OP> equals its plain version bit for bit; an empty
+    output launches nothing."""
+    rng = np.random.default_rng(nw)
+    x = _exp_words(rng, xs, nw, cuda)
+    if ys == "T":      # transposed views, both operands
+        x = tuple(c.transpose(1, 2) for c in x)
+        y = tuple(c.transpose(1, 2) for c in _exp_words(rng, xs, nw, cuda))
+    else:
+        y = _exp_words(rng, ys, nw, cuda)
+    K.reset_counts()
+    for name in ("add", "sub", "mul", "div"):
+        got = getattr(K, f"ew_{name}")(x, y)
+        assert _bits(got, getattr(K, f"ew_{name}_plain")(x, y)), name
+    assert _bits(K.ew_neg(x), K.ew_neg_plain(x))
+    sym = x if x[0].dim() >= 2 and x[0].shape[-1] == x[0].shape[-2] else None
+    if sym is not None:
+        assert _bits(K.ew_symmetrize(sym), K.ew_symmetrize_plain(sym))
+    torch.cuda.synchronize()
+    c = K.counts()
+    launched = 0 if x[0].numel() * y[0].numel() == 0 else 1
+    for name in ("add", "sub", "mul", "div"):
+        assert c[f"ew_{name}"] == launched
+    assert c["ew_neg"] == (1 if x[0].numel() else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, axis", [
+    ((1, 2, 22), 1), ((2, 22, 11), 2), ((242,), 0), ((2, 22, 22, 1), 3),
+    ((1, 1, 1), 0), ((0, 4), 0), ((3, 0), 0), ((13, 4), 0), ((2, 5, 7, 3), -2),
+    ((12001, 2), 0),      # a column past shared memory: one launch a level
+    ((9000, 3), 0)])      # past it at nw 8 only
+@pytest.mark.parametrize("nw", [5, 8])
+def test_tree_sum_matches_plain_on_card(nw, shape, axis, cuda):
+    x = _exp_words(np.random.default_rng(nw + len(shape)), shape, nw, cuda)
+    if shape == (13, 4):
+        x = tuple(c.t().contiguous().t() for c in x)     # a strided input
+    K.reset_counts()
+    got = K.tree_sum(x, axis)
+    assert _bits(got, K.tree_sum_plain(x, axis))
+    route, plan = K.tree_sum_plan(shape[axis], nw, 1)
+    want = (0 if got[0].numel() == 0 else
+            len(plan) if route == "levels" else 1)
+    assert K.counts()["tree_sum"] == want
+
+
+@pytest.mark.gpu
+def test_step_runs_expansion_ops_as_kernels_on_card(cuda):
+    """An eager f32 step on the card launches every expansion kernel and
+    runs no plain version."""
+    ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(delsarte(ct, 3)), nw=5,
+                      device=cuda)
+    K.reset_counts()
+    TS.make_step_body(ds, **STEP_KW)(TS.initial_state(ds, 100.0, 100.0),
+                                     False)
+    torch.cuda.synchronize()
+    c = K.counts()
+    for name in ("ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
+                 "ew_symmetrize", "tree_sum"):
+        assert c[name] > 0, name
+    assert all(v == 0 for k, v in c.items() if k.endswith("_plain"))

@@ -11,7 +11,12 @@ caller; ``--kernel int8_gemm`` records (B, M, K, N), ``--kernel cascade``
 limb_extract`` (nw, B, d0, d1, side, layout, L), L the limbs of the product
 the operand goes into); the three pl_map chains
 through ``clrs_tpu_torch.solver.step`` (``--kernel plmap`` records (chain,
-nw, L, n), chain one of add, axpy, residual, residual_corr). Then it times
+nw, L, n), chain one of add, axpy, residual, residual_corr); the expansion
+ops through ``clrs_tpu_torch.dd.arith`` and ``clrs_tpu_torch.dd.linalg``
+(every f32 caller; ``--kernel expmap`` records (op, nw, x shape, y shape),
+op one of add, sub, mul, div, neg, symmetrize, y None for the one-operand
+ops) and the tree sums through ``clrs_tpu_torch.dd.linalg`` (``--kernel
+tree_sum`` records (nw, shape, axis)). Then it times
 the kernel at every recorded shape on random inputs of that shape with
 chip_smoke.py's ``time_ms`` (CUDA events around calls queued behind a spin
 kernel): a solve on an SPD matrix's factor from the Cholesky kernel and
@@ -20,7 +25,9 @@ product on limbs drawn from [-65, 65], the extraction on standard normal
 words with rows scaled by powers of ten, the limb GEMM on such words'
 limbs (from the plain extraction), the cascade on int32 C (form ``c``) or
 diagonal sums (form ``diags``) drawn from +-2^24, the chains on standard
-normal [L, n, n] words with mu and alpha as [L, 1, 1] broadcast scalars.
+normal [L, n, n] words with mu and alpha as [L, 1, 1] broadcast scalars,
+the expansion ops and tree sums on contiguous words of the recorded shapes
+(word 0 over 16 decades, word k about 2^-24k of it).
 ``--kernel`` takes a comma list (one solve records them all); ``--shape
 kernel:a,b,...`` times a shape of that kernel besides (``--d 0``: no
 solve, only those; an extraction's L may be left out, the L of an nw-word
@@ -38,6 +45,7 @@ another checkout times that checkout's kernels. On a machine with a card:
     python3 torch_kernel_timing.py --kernel chol --d 0 --shape chol:5,2,64
     python3 torch_kernel_timing.py --kernel limb_extract --d 0 --shape limb_extract:5,4,192,64,a,limb
     python3 torch_kernel_timing.py --kernel cascade --d 0 --shape cascade:5,4,22,22,diags
+    python3 torch_kernel_timing.py --kernel expmap,tree_sum --d 95 --iters 1
 """
 
 from __future__ import annotations
@@ -50,22 +58,28 @@ import sys
 from fractions import Fraction
 from pathlib import Path
 
-# kernel -> (module of clrs_tpu_torch whose kernels-module attribute is
-# recorded, that attribute, the wrappers recorded)
-RECORDED = {"tri": ("dd.linalg", "K", ("tri_solve_batched",)),
-            "chol": ("dd.linalg", "K", ("chol_batched",)),
-            "int8_gemm": ("dd.limb_gemm", "K", ("int8_gemm",)),
-            "limb_gemm": ("dd.limb_gemm", "K", ("limb_gemm",)),
-            "limb_extract": ("dd.limb_gemm", "K", ("limb_extract",)),
-            "cascade": ("dd.limb_gemm", "K", ("cascade_from_c",)),
-            "plmap": ("solver.step", "dk",
-                      ("plmap_add", "plmap_axpy", "plmap_residual"))}
+# kernel -> (the (module of clrs_tpu_torch, its kernels-module attribute)
+# pairs recorded, the wrappers recorded)
+RECORDED = {"tri": ((("dd.linalg", "K"),), ("tri_solve_batched",)),
+            "chol": ((("dd.linalg", "K"),), ("chol_batched",)),
+            "int8_gemm": ((("dd.limb_gemm", "K"),), ("int8_gemm",)),
+            "limb_gemm": ((("dd.limb_gemm", "K"),), ("limb_gemm",)),
+            "limb_extract": ((("dd.limb_gemm", "K"),), ("limb_extract",)),
+            "cascade": ((("dd.limb_gemm", "K"),), ("cascade_from_c",)),
+            "plmap": ((("solver.step", "dk"),),
+                      ("plmap_add", "plmap_axpy", "plmap_residual")),
+            "expmap": ((("dd.arith", "K"), ("dd.linalg", "K")),
+                       ("ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
+                        "ew_symmetrize")),
+            "tree_sum": ((("dd.linalg", "K"),), ("tree_sum",))}
 FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
           "int8_gemm": ("B", "M", "K", "N"),
           "limb_gemm": ("nw", "B", "m", "k", "n"),
           "limb_extract": ("nw", "B", "d0", "d1", "side", "layout", "L"),
           "cascade": ("nw", "B", "m", "n", "form"),
-          "plmap": ("chain", "nw", "L", "n")}
+          "plmap": ("chain", "nw", "L", "n"),
+          "expmap": ("op", "nw", "x", "y"),
+          "tree_sum": ("nw", "shape", "axis")}
 
 
 def _shape(kernel, wrapper, args, kw):
@@ -96,6 +110,14 @@ def _shape(kernel, wrapper, args, kw):
             chain = "residual_corr"
         L, n = words[0].shape[:2]
         return (chain, len(words), L, n)
+    if kernel == "expmap":
+        op = wrapper.split("_", 1)[1]
+        y = tuple(args[1][0].shape) if len(args) > 1 else None
+        return (op, len(args[0]), tuple(args[0][0].shape), y)
+    if kernel == "tree_sum":
+        x, axis = args
+        shape = tuple(x[0].shape)
+        return (len(x), shape, axis % len(shape))
     a, b = args
     return tuple(a.shape) + (b.shape[2],)
 
@@ -132,6 +154,13 @@ def _cascade_args(key, rng, K):
     eab = rng.integers(-8, 9, (B, m, n)).astype(np.int32)
     return (torch.from_numpy(src).to("cuda"), torch.from_numpy(eab).to("cuda"),
             nw)
+
+
+def _expmap_args(key, rng, S):
+    """Contiguous words of the recorded shapes: (x,) or (x, y)."""
+    op, nw, xs, ys = key
+    x = S._exp_words(rng, xs, nw)
+    return (x,) if ys is None else (x, S._exp_words(rng, ys, nw))
 
 
 def inputs(kernel, key, rng, S, K):
@@ -177,6 +206,14 @@ def inputs(kernel, key, rng, S, K):
         name = "plmap_" + key[0].replace("_corr", "")
         return (name, getattr(K, name), getattr(K, name + "_plain"),
                 _chain_args(key, rng, S))
+    if kernel == "expmap":
+        name = "ew_" + key[0]
+        return (name, getattr(K, name), getattr(K, name + "_plain"),
+                _expmap_args(key, rng, S))
+    if kernel == "tree_sum":
+        nw, shape, axis = key
+        return ("tree_sum", K.tree_sum, K.tree_sum_plain,
+                (S._exp_words(rng, shape, nw), axis))
     B, M, k, N = key
     a, b = (torch.from_numpy(rng.integers(-65, 66, s).astype(np.int8))
             .to("cuda") for s in ((B, M, k), (B, k, N)))
@@ -209,6 +246,10 @@ def _bound_ms(kernel, key, S, K):
                "residual_corr": 2 * nw + 2 * add}[chain]
         args = _chain_args(key, np.random.default_rng(0), S)
         return S.bound(*S.cost_plmap(args, nw, L * n * n, ops))[0]
+    if kernel == "expmap":
+        return S.bound(*S.cost_expmap(*key))[0]
+    if kernel == "tree_sum":
+        return S.bound(*S.cost_tree_sum(*key))[0]
     nw, B, d0, d1, side, _, L = key
     return S.bound(*S.cost_extract(nw, L, B, d0, d1, side))[0]
 
@@ -219,14 +260,15 @@ def record(kernel, run):
     their way to them (recordings nest)."""
     import importlib
 
-    modname, attr, wrappers = RECORDED[kernel]
-    caller = importlib.import_module(f"clrs_tpu_torch.{modname}")
-    inner = getattr(caller, attr)
+    callers, wrappers = RECORDED[kernel]
     seen = collections.Counter()
 
     class Recording:
+        def __init__(self, inner):
+            self.inner = inner
+
         def __getattr__(self, name):
-            fn = getattr(inner, name)
+            fn = getattr(self.inner, name)
             if name not in wrappers:
                 return fn
 
@@ -236,12 +278,35 @@ def record(kernel, run):
 
             return recorded
 
-    setattr(caller, attr, Recording())
+    patched = []
+    for modname, attr in callers:
+        caller = importlib.import_module(f"clrs_tpu_torch.{modname}")
+        patched.append((caller, attr, getattr(caller, attr)))
+        setattr(caller, attr, Recording(patched[-1][2]))
     try:
         run()
     finally:
-        setattr(caller, attr, inner)
+        for caller, attr, inner in reversed(patched):
+            setattr(caller, attr, inner)
     return seen
+
+
+def _parse_key(kernel, text):
+    """A --shape key: comma-separated values, ints where they read as ints;
+    a shape of expmap or tree_sum written as 2x22x1 ("-" the shape (),
+    "none" no second operand), e.g. expmap:mul,5,2x22x1,2x22x11 or
+    tree_sum:5,242,0."""
+    def dims(v):
+        return () if v == "-" else tuple(int(d) for d in v.split("x"))
+
+    vals = text.split(",")
+    if kernel == "expmap":
+        op, nw, xs, ys = vals
+        return (op, int(nw), dims(xs), None if ys == "none" else dims(ys))
+    if kernel == "tree_sum":
+        nw, shape, axis = vals
+        return (int(nw), dims(shape), int(axis))
+    return tuple(int(v) if v.lstrip("-").isdigit() else v for v in vals)
 
 
 def main():
@@ -255,8 +320,7 @@ def main():
                     help="kernel:a,b,... timed besides the recorded shapes")
     args = ap.parse_args()
     kernels = args.kernel.split(",")
-    extra = [(k, tuple(int(v) if v.lstrip("-").isdigit() else v
-                       for v in dims.split(",")))
+    extra = [(k, _parse_key(k, dims))
              for k, dims in (x.split(":") for x in args.shape)]
     for k in kernels + [k for k, _ in extra]:
         if k not in RECORDED:
@@ -297,7 +361,7 @@ def main():
     rng = np.random.default_rng(0)
     for k in dict.fromkeys(kernels + [k for k, _ in extra]):
         rows, sums = [], collections.Counter()
-        keys = list(sorted(seen.get(k, {}).items())) + [
+        keys = list(sorted(seen.get(k, {}).items(), key=repr)) + [
             (key, 0) for kk, key in extra if kk == k]
         for key, calls in keys:
             _, fn, _, a = inputs(k, key, rng, S, K)
@@ -307,7 +371,7 @@ def main():
                              ms=ms, ms_per_iteration=per_it * ms,
                              bound_ms=_bound_ms(k, key, S, K)))
             form = (("transposed" if key[-1] else "forward") if k == "tri"
-                    else key[0] if k == "plmap" else "all")
+                    else key[0] if k in ("plmap", "expmap") else "all")
             sums[form] += per_it * ms
         print(json.dumps({
             "card": card, "checkout": str(Path(__file__).resolve().parent),

@@ -17,8 +17,10 @@ iteration (the CUDA runtime and driver calls that launch a kernel or a
 graph or copy memory), peak device memory, the capture seconds, the
 port's kernel launches per iteration (clrs_tpu_torch.dd.kernels counters,
 the two forms of the triangular solve apart), the calls and device ms per
-iteration of each of the port's CUDA kernels (by template instance) and
-the largest device times by kernel name. Run it from the root of a
+iteration of each of the port's CUDA kernels (by template instance), the
+same summed over the step's expansion arithmetic (csrc/expmap.cu's
+expmap and tree_sum instances) and over PyTorch's own kernels, and the
+largest device times by kernel name. Run it from the root of a
 checkout (the package is imported from beside the script, so a copy of
 the script in another checkout profiles that checkout) on a machine with
 a card:
@@ -103,6 +105,12 @@ def main():
             key = rest.split("(", 1)[0]
             pc, pt = port.get(key, (0, 0.0))
             port[key] = (pc + c, pt + t)
+    expansion = [sum(v[i] for k, v in port.items()
+                     if k.startswith(("expmap<", "tree_sum<")))
+                 for i in (0, 1)]
+    ported = [sum(v[i] for v in port.values()) for i in (0, 1)]
+    torch_own = [len(dev) - ported[0],
+                 sum(t for _, t in by_name.values()) - ported[1]]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
     print(json.dumps({
         "card": card, "checkout": str(Path(__file__).resolve().parent),
@@ -120,6 +128,10 @@ def main():
         "port_launches_per_iteration": launches,
         "port_kernel_calls_and_device_ms_per_iteration": {
             k: [c / N, t / N] for k, (c, t) in sorted(port.items())},
+        "expansion_kernel_calls_and_device_ms_per_iteration":
+            [v / N for v in expansion],
+        "pytorch_kernel_calls_and_device_ms_per_iteration":
+            [v / N for v in torch_own],
         "top_device_ms_per_iteration": {
             nm[:90]: [c / N, t / N] for nm, (c, t) in top},
     }), flush=True)
