@@ -20,11 +20,16 @@ Phases (one line each; any failure exits non-zero):
      version's time (time_ms), its bound on this card (bound) and a library
      call's time where one PyTorch call computes the same function; the
      step's expansion arithmetic (csrc/expmap.cu: expmap<NW, OP> for add,
-     sub, mul, div, neg and symmetrize, tree_sum<NW>) bit for bit at every
-     shape one eager delsarte(3,10) and one delsarte(3,95) iteration give
-     its wrappers (recorded on the way), at nw 5 and 8, timed at the nw-5
+     sub, mul, div, neg and symmetrize; csrc/exptree.cu: tree_sum<NW, PRO>
+     behind tree_sum and tree_sum_fused; csrc/expfuse.cu: expfuse<NW,
+     FORM> behind ew_fma, ew_fms, ew_msub, ew_mms and ew_sub2, expselect<NW>
+     behind ew_select) bit for bit at every shape one eager delsarte(3,10)
+     and one delsarte(3,95) chunk iteration (step and commit) give its
+     wrappers (recorded on the way), at nw 5 and 8, timed at the nw-5
      (3,95) shapes, and at numel 0, (), stride-0 broadcasts, transposed
-     operands, odd n and tree columns past shared memory;
+     operands, odd n, both tree routes (block and cluster) and the level
+     route, the cluster route at 18,432 entries (nw 5) and 32,768 (nw 5
+     and 8) with the product and the accumulate, and a false commit;
   4. delsarte(3, 10) through clrs_tpu_torch.solvesdp (the card is its
      default device; each iteration replays the step's CUDA graphs):
      error code 0, Optimal, objective within 1e-9 of 13.15831434739031 in
@@ -362,6 +367,68 @@ def cost_tree_sum(nw, shape, axis):
             {"scalar": M * max(n - 1, 0) * exp_add_ops(nw)})
 
 
+def _bshape(*shapes):
+    """The broadcast of shapes (None left out)."""
+    shapes = [tuple(s) for s in shapes if s is not None]
+    nd = max((len(s) for s in shapes), default=0)
+    out = []
+    for d in range(nd):
+        dims = [s[d - nd + len(s)] for s in shapes if d - nd + len(s) >= 0]
+        out.append(0 if 0 in dims else max(dims))
+    return tuple(out)
+
+
+FUSE_CHAIN = {"fma": ("mul", "add"), "fms": ("mul", "add"),
+              "msub": ("mul", "add"), "mms": ("mul", "mul", "add"),
+              "sub2": ("add", "add")}
+
+
+def cost_expfuse(form, nw, shapes, scale, mask):
+    """One fused form (csrc/expfuse.cu): each operand word, the scale and
+    the mask read once, the broadcast output written once; per output
+    element the form's ops, the scale's and the mask's nw multiplies."""
+    out = _bshape(*shapes, scale if isinstance(scale, tuple) else None,
+                  mask)
+    n_out = _numel(out)
+    per = sum(exp_mul_ops(nw) if op == "mul" else exp_add_ops(nw)
+              for op in FUSE_CHAIN[form])
+    per += nw * ((scale is not None) + (mask is not None))
+    nbytes = (4 * nw * (sum(_numel(sh) for sh in shapes) + n_out)
+              + 4 * (_numel(scale) if isinstance(scale, tuple) else 0)
+              + 4 * (_numel(mask) if mask is not None else 0))
+    return nbytes, {"scalar": n_out * per}
+
+
+def cost_tree_fused(nw, xs, ys, axis, accs, sub, scale_on, scs):
+    """acc +- sum of x s y over ``axis`` (csrc/exptree.cu): x, y, the
+    scale and acc read once, one word set a column written; per column n
+    products, n - 1 adds and the accumulate."""
+    shape = _bshape(xs, ys, scs)
+    if not shape:
+        a0, a1 = 0, 0
+    elif axis is None:
+        a0, a1 = 0, len(shape)
+    else:
+        axes = sorted(a % len(shape) for a in ((axis,) if isinstance(
+            axis, int) else axis))
+        a0, a1 = axes[0], axes[-1] + 1
+    n = _numel(shape[a0:a1])
+    M = _numel(shape[:a0] + shape[a1:])
+    per_col = (max(n - 1, 0) * exp_add_ops(nw)
+               + (n * exp_mul_ops(nw) if ys is not None else 0)
+               + (n * nw if scs is not None else 0)
+               + (exp_add_ops(nw) if accs is not None else 0))
+    nbytes = (4 * nw * (_numel(xs) + _numel(ys) + _numel(accs) + M)
+              + 4 * _numel(scs))
+    return nbytes, {"scalar": M * per_col}
+
+
+def cost_select(nw, shapes):
+    """The commit with cond true (every word moves): each source word
+    read, each destination word written, once."""
+    return 8 * nw * sum(_numel(sh) for sh in shapes) + 1, {"scalar": 0}
+
+
 def cost_chol(nw, B, n):
     """Both triangles of each trailing update: the next pivot row reads the
     upper one, and expansion products are not symmetric bit for bit."""
@@ -536,7 +603,12 @@ class Kernels:
               "chol_batched": "clrs_tpu_torch/csrc/chol.cu",
               **{name: "clrs_tpu_torch/csrc/expmap.cu" for name in (
                   "ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
-                  "ew_symmetrize", "tree_sum")}}
+                  "ew_symmetrize")},
+              **{name: "clrs_tpu_torch/csrc/exptree.cu" for name in (
+                  "tree_sum", "tree_sum_fused")},
+              **{name: "clrs_tpu_torch/csrc/expfuse.cu" for name in (
+                  "ew_fma", "ew_fms", "ew_msub", "ew_mms", "ew_sub2",
+                  "ew_select")}}
     PL = "clrs_tpu/dd/pallas_linalg.py"
 
     def __init__(self):
@@ -1099,9 +1171,13 @@ def compare_product_word_counts(ks):
 
 
 # the expansion arithmetic of the step: each f32 add, subtract, multiply,
-# divide, negation, symmetrization and tree sum one launch
+# divide, negation, symmetrization and tree sum one launch, each product-sum
+# chain of the step (acc +- sum(x s y), a + b c, a - b c, a b - c,
+# a b - c d, a - b - c s) one launch, and the commit's select
 EXPANSION = ("ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
-             "ew_symmetrize", "tree_sum")
+             "ew_symmetrize", "tree_sum", "tree_sum_fused", "ew_fma",
+             "ew_fms", "ew_msub", "ew_mms", "ew_sub2", "ew_select")
+EXPANSION_GROUPS = ("expmap", "tree_sum", "expfuse", "tree_fused", "select")
 # replaces: the XLA fusions of the jitted TPU step (not Pallas)
 EXPANSION_REPLACES = {
     "ew_symmetrize": "clrs_tpu/dd/linalg.py:209 (dd_symmetrize over expops, "
@@ -1109,46 +1185,82 @@ EXPANSION_REPLACES = {
                      "1621; not Pallas)",
     "tree_sum": "clrs_tpu/dd/linalg.py:110-127 (dd_sum over expops.exp_add, "
                 "XLA-fused in the jitted step clrs_tpu/solver/step.py:1621; "
-                "not Pallas)"}
+                "not Pallas)",
+    "tree_sum_fused": "clrs_tpu/dd/linalg.py:110-127 with the products "
+                      "and the accumulate around it (dd_add(acc, dd_sum("
+                      "dd_mul(x, y)))), XLA-fused in the jitted step "
+                      "clrs_tpu/solver/step.py:1621; not Pallas",
+    "ew_select": "clrs_tpu/solver/step.py:1661-1666 (the commit's "
+                 "jnp.where per state leaf, XLA-fused in the jitted chunk "
+                 "loop; not Pallas)"}
 for _name in EXPANSION[:5]:
     EXPANSION_REPLACES[_name] = (
         "clrs_tpu/dd/core.py:448-499 (expops." + _name.replace("ew_", "exp_")
         + ", XLA-fused in the jitted step clrs_tpu/solver/step.py:1621; "
         "not Pallas)")
+for _name in ("ew_fma", "ew_fms", "ew_msub", "ew_mms", "ew_sub2"):
+    EXPANSION_REPLACES[_name] = (
+        "clrs_tpu/dd/core.py:448-499 (a chain of expops products and sums, "
+        "XLA-fused in the jitted step clrs_tpu/solver/step.py:1621; not "
+        "Pallas)")
 
 
 def _record_iteration(problem):
     """{group: {shape key: calls}} of the expansion kernels in one eager
-    f32 nw-5 iteration of ``problem`` on the card (torch_kernel_timing.py's
-    ``record``)."""
+    f32 nw-5 chunk iteration (the step and the commit) of ``problem`` on
+    the card (torch_kernel_timing.py's ``record``)."""
     import torch_kernel_timing as T
-    from clrs_tpu_torch.solver.step import initial_state, make_step_body
+    from clrs_tpu_torch.solver import step as TS
+    from clrs_tpu_torch.solver.ipm import _to_host
 
     ds = device_sdp(problem)
-    step = make_step_body(ds, **STEP_KW)
+    state = TS.initial_state(ds, 100.0, 100.0)
+    info = TS.zero_info(_to_host(TS.make_assess(ds)(state)), ds.device)
     seen = {}
 
     def nest(gs):
         if not gs:
-            step(initial_state(ds, 100.0, 100.0), False)
+            run = TS.make_run_chunk(ds, duality_gap_threshold=1e-15,
+                                    **STEP_KW)
+            run(state, False, info, 1)
             return
         seen[gs[0]] = T.record(gs[0], lambda: nest(gs[1:]))
 
-    nest(["expmap", "tree_sum"])
+    capture, TS._CAPTURE = TS._CAPTURE, False      # one eager iteration
+    try:
+        nest(list(EXPANSION_GROUPS))
+    finally:
+        TS._CAPTURE = capture
     return seen
 
 
 def _with_nw(group, key, nw):
-    return (key[0], nw) + key[2:] if group == "expmap" else (nw,) + key[1:]
+    return (key[0], nw) + key[2:] if group in ("expmap", "expfuse") \
+        else (nw,) + key[1:]
+
+
+def _key_numel(group, key):
+    """The largest operand of a recorded expansion shape."""
+    shapes = (key[2:] if group == "expmap" else key[2] if group == "expfuse"
+              else key[1:2] if group == "tree_sum" else key[1:3]
+              if group == "tree_fused" else key[1])
+    return max((_numel(sh) for sh in shapes if sh is not None), default=0)
+
+
+EXPANSION_COST = {"expmap": cost_expmap, "tree_sum": cost_tree_sum,
+                  "expfuse": cost_expfuse, "tree_fused": cost_tree_fused,
+                  "select": cost_select}
 
 
 def compare_expansion_kernels(ks, problem_3_10, problem_3_95):
-    """Phase 3, the step's expansion arithmetic (csrc/expmap.cu): every
-    expmap<NW, OP> and tree_sum<NW> shape of one delsarte(3,10) and one
-    delsarte(3,95) iteration (recorded on the way to the wrappers), at nw 5
-    and 8, bit for bit against the plain versions, the nw-5 (3,95) shapes
-    timed; then the edges: numel 0, (), stride-0 broadcast views,
-    transposed operands, odd n and columns past shared memory."""
+    """Phase 3, the step's expansion arithmetic (csrc/expmap.cu,
+    exptree.cu, expfuse.cu): every expmap<NW, OP>, tree_sum<NW, PRO>,
+    expfuse<NW, FORM> and expselect<NW> shape of one delsarte(3,10) and
+    one delsarte(3,95) chunk iteration (recorded on the way to the
+    wrappers), at nw 5 and 8, bit for bit against the plain versions, the
+    nw-5 (3,95) shapes timed; then the edges: numel 0, (), stride-0
+    broadcast views, transposed operands, odd n, the block, cluster and
+    level routes of the tree sum (compare_fused_edges)."""
     import numpy as np
     import torch
 
@@ -1167,16 +1279,14 @@ def compare_expansion_kernels(ks, problem_3_10, problem_3_95):
           f"(recorded in {time.time() - t0:.1f} s)", flush=True)
     def size(item):      # the largest shapes first: each kernel's summary
         (group, key), _ = item          # line takes its first timed shape
-        shapes = key[2:] if group == "expmap" else key[1:2]
-        return -max(_numel(sh) for sh in shapes), repr(item)
+        return -_key_numel(group, key), repr(item)
 
     for (group, key), calls in sorted(seen.items(), key=size):
         for nw in (5, 8):
             k = _with_nw(group, key, nw)
             name, kernel, plain, args = T.inputs(group, k, rng, me, K)
             timed = nw == 5 and "3,95" in calls
-            cost = (cost_expmap(*k) if group == "expmap"
-                    else cost_tree_sum(*k)) if timed else None
+            cost = EXPANSION_COST[group](*k) if timed else None
             ks.check(name, EXPANSION_REPLACES[name], kernel, plain, args,
                      dict(zip(T.FIELDS[group], k), calls_per_iteration=calls),
                      cost, reps=LIMB_REPS, plain_reps=2)
@@ -1210,19 +1320,88 @@ def compare_expansion_kernels(ks, problem_3_10, problem_3_95):
             ks.check("ew_symmetrize", EXPANSION_REPLACES["ew_symmetrize"],
                      K.ew_symmetrize, K.ew_symmetrize_plain, (a,),
                      dict(nw=nw, kind=kind))
-        for shape, axis in (((13, 4), 0), ((2, 7, 3), 1), ((1, 1, 1), 0),
-                            ((0, 4), 0), ((3, 0), 0), ((12001, 2), 0),
-                            ((9001, 1), 0), ((5, 2301), 1)):
+        for shape, axis in (((18432,), 0), ((13, 4), 0), ((2, 7, 3), 1),
+                            ((1, 1, 1), 0), ((0, 4), 0), ((3, 0), 0),
+                            ((12001, 2), 0), ((9001, 1), 0), ((5, 2301), 1),
+                            ((400001, 1), 0)):
             a = _exp_words(rng, shape, nw)
             if shape == (13, 4):
                 a = tuple(c.t().contiguous().t() for c in a)
             route, _ = K.tree_sum_plan(shape[axis], nw, 1)
+            # timed at the sum a sharded (3,95) dot runs after its gather
+            # (the one-process path fuses every sum with its product)
+            cost = (cost_tree_sum(nw, shape, axis)
+                    if nw == 5 and shape == (18432,) else None)
             ks.check("tree_sum", EXPANSION_REPLACES["tree_sum"], K.tree_sum,
                      K.tree_sum_plain, (a, axis),
-                     dict(nw=nw, shape=shape, axis=axis, route=route))
+                     dict(nw=nw, shape=shape, axis=axis, route=route), cost,
+                     reps=LIMB_REPS, plain_reps=2)
+        compare_fused_edges(ks, rng, nw, K)
     torch.cuda.synchronize()
     print(f"  expansion kernels compared in {time.time() - t0:.1f} s",
           flush=True)
+
+
+def compare_fused_edges(ks, rng, nw, K):
+    """Phase 3's edges of the fused kernels, untimed: each form on
+    stride-0 broadcast, transposed, scalar and empty operands with a mask
+    and sub2's scale; the tree sum with the product, a scale on x or on
+    the product and either accumulate on the block route (3 columns of a
+    transposed view, n 1, 2, 95 and 243), the cluster route (18,432
+    entries at nw 5, 32,768 at nw 5 and 8: the (3,95) dot and the
+    (3,127) one) and the level route (400,001 entries); the select with a
+    false commit."""
+    import torch
+
+    x = _exp_words(rng, (2, 22, 1), nw)
+    y = _exp_words(rng, (2, 22, 11), nw)
+    xt = tuple(c.transpose(1, 2) for c in _exp_words(rng, (2, 11, 11), nw))
+    cases = {"stride-0 broadcast": ([tuple(c.expand(2, 22, 11) for c in x),
+                                     y, x, y], (2, 22, 11)),
+             "transposed": ([xt, xt, _exp_words(rng, (2, 11, 11), nw), xt],
+                            (2, 11, 11)),
+             "scalar": ([_exp_words(rng, (), nw) for _ in range(4)], ()),
+             "numel 0": ([_exp_words(rng, (2, 0, 5), nw),
+                          _exp_words(rng, (1, 5), nw)] * 2, None)}
+    for kind, (ops, ms) in cases.items():
+        mask = None if ms is None else torch.from_numpy(
+            rng.integers(0, 2, ms).astype("float32")).to("cuda")
+        for form in ("fma", "fms", "msub", "mms"):
+            name = f"ew_{form}"
+            n = 4 if form == "mms" else 3
+            ks.check(name, EXPANSION_REPLACES[name], getattr(K, name),
+                     getattr(K, name + "_plain"), (*ops[:n], mask),
+                     dict(nw=nw, kind=kind))
+        ks.check("ew_sub2", EXPANSION_REPLACES["ew_sub2"], K.ew_sub2,
+                 K.ew_sub2_plain, (*ops[:3], -1.0, mask),
+                 dict(nw=nw, kind=kind))
+    for n, cols in ((1, 3), (2, 3), (95, 3), (243, 3), (18432, 1),
+                    (32768, 1), (400001, 1)):
+        if n == 18432 and nw != 5:
+            continue
+        xw = tuple(c.t() for c in _exp_words(rng, (cols, n), nw))
+        yw = _exp_words(rng, (n, 1), nw)
+        acc = _exp_words(rng, (cols,), nw)
+        sc = torch.from_numpy(rng.integers(0, 2, (n, cols)).astype(
+            "float32")).to("cuda")
+        route, _ = K.tree_sum_plan(n, nw, cols)
+        for sub, scale_on in ((False, None), (True, "x"), (False, "product")):
+            ks.check("tree_sum_fused", EXPANSION_REPLACES["tree_sum_fused"],
+                     K.tree_sum_fused, K.tree_sum_fused_plain,
+                     (xw, yw, 0, acc, sub, None if scale_on is None else sc,
+                      scale_on),
+                     dict(nw=nw, n=n, columns=cols, route=route, sub=sub,
+                          scale_on=scale_on))
+    src = [_exp_words(rng, (2, 96, 96), nw), _exp_words(rng, (1, 191), nw)]
+    dst = [_exp_words(rng, (2, 96, 96), nw), _exp_words(rng, (1, 191), nw)]
+    dk = [tuple(c.clone() for c in d) for d in dst]
+    cond = torch.zeros((), dtype=torch.bool, device="cuda")
+    ks.check("ew_select", EXPANSION_REPLACES["ew_select"],
+             lambda c, s, a, b: K.ew_select(c, zip(s, a)),
+             lambda c, s, a, b: K.ew_select_plain(c, zip(s, b)),
+             (cond, src, dk, dst), dict(nw=nw, kind="false commit"))
+    if not all(_compare(a, b)[0] for a, b in zip(dk, dst)):
+        fail("ew_select moved words on a false commit")
 
 
 # kernels each solve must launch: the split route, the chain kernels and
@@ -1230,10 +1409,19 @@ def compare_expansion_kernels(ks, problem_3_10, problem_3_95):
 # limb GEMM as well (its Schur pairings exceed the JAX route threshold).
 # cascade<FROM_DIAGS> has no caller in either package (phase 3 holds it
 # against its plain version).
+# The plain tree_sum runs only where a sharded axis is gathered between a
+# product and its sum (phase 13): every tree sum of a one-process step is
+# a tree_sum_fused (whose kernel, tree_sum<NW, PRO>, is tree_sum's too).
 PATH_3_10 = ("limb_extract", "int8_gemm", "cascade_from_c", "chol_batched",
              "tri_solve_batched<false>", "tri_solve_batched<true>",
-             "plmap_add", "plmap_axpy", "plmap_residual") + EXPANSION
+             "plmap_add", "plmap_axpy", "plmap_residual") + tuple(
+                 n for n in EXPANSION if n != "tree_sum")
 PATH_3_95 = PATH_3_10 + ("limb_gemm",)
+# ew_msub, ew_mms and ew_fms fuse chains of the scalar pack (the 1x1
+# blocks), which a problem without 1x1 blocks never runs: GW max-cut,
+# theta(C5), the POVM, min_f(2), multi_cluster_test_problem
+SCALAR_PACK_FORMS = ("ew_msub", "ew_mms", "ew_fms")
+PATH_NO_PACK = tuple(n for n in PATH_3_10 if n not in SCALAR_PACK_FORMS)
 
 
 def check_counts(label, counts, required, n_it):
@@ -2021,7 +2209,9 @@ CERT_ORACLES = (
 # kernels each phase-12 solve must launch: PATH_3_10, and at three-point
 # the fused limb GEMM as well (its Schur pairings exceed the route
 # threshold, as at delsarte(3,95))
-CERT_PATH = {"three-point(4,1/6,-1,4)": PATH_3_95}
+CERT_PATH = {"three-point(4,1/6,-1,4)": PATH_3_95,
+             "GW max-cut C3": PATH_NO_PACK, "theta(C5) Model": PATH_NO_PACK,
+             "POVM Model": PATH_NO_PACK}
 
 
 def certificate_path(card, ks):
@@ -2348,7 +2538,8 @@ def solve_oracles(card, runs):
             fail(f"{label}: objective {v!r} not within {tol} of {want!r}")
         if strict and (code != 0 or not ct.optimal(status)):
             fail(f"{label}: code {code}, status {status!r}")
-        check_counts(label, parts.counts, PATH_3_10, n_it)
+        check_counts(label, parts.counts, PATH_NO_PACK if
+                     label.startswith("min_f") else PATH_3_10, n_it)
         runs[label] = parts.counts
     K.reset_counts()
 
@@ -2637,7 +2828,7 @@ def sharded_path(card, problem_3_10, problem_3_95, rows_3_95, ks):
             "delsarte(3,10)": dict(path=PATH_3_10, code=0, obj=DELSARTE_3_10,
                                    tol=1e-10),
             "multi_cluster_test_problem(16, 8)": dict(
-                path=PATH_3_10, code=0, obj=obj_multi, tol=1e-12,
+                path=PATH_NO_PACK, code=0, obj=obj_multi, tol=1e-12,
                 its=its_multi[-1], rel=True)}
     three = dict(maxiterations=3)
     runs, seen_all = {}, {}

@@ -25,8 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("kernels.cu", "limb_gemm.cu", "int8_gemm.cu", "chol.cu", "expmap.cu")
-HEADERS = ("expansion.cuh", "common.cuh", "limbs.cuh")
+SOURCES = ("kernels.cu", "limb_gemm.cu", "int8_gemm.cu", "chol.cu", "expmap.cu",
+           "exptree.cu", "expfuse.cu")
+HEADERS = ("expansion.cuh", "common.cuh", "limbs.cuh", "expview.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false"]
@@ -72,12 +73,22 @@ def _declare(lib):
     lib.clrs_expmap.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(ll),
                                 ctypes.POINTER(i), ctypes.POINTER(i), i, vp,
                                 ll, i, vp]
+    f = ctypes.c_float
     lib.clrs_tree_sum.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ll),
-                                  ctypes.POINTER(ll), i, ctypes.POINTER(i), i,
-                                  vp, ll, ll, ll, i, i, i, i, i, vp]
+                                  ctypes.POINTER(i), vp, ctypes.POINTER(ll),
+                                  f, i, ctypes.POINTER(i), i, i, vp, ll, ll,
+                                  ll, i, i, i, i, i, i, i, i, i, vp]
+    lib.clrs_expfuse.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(ll),
+                                 ctypes.POINTER(i), vp, ctypes.POINTER(ll), f,
+                                 i, vp, ctypes.POINTER(ll), ctypes.POINTER(vp),
+                                 ctypes.POINTER(ll), ctypes.POINTER(i), i, ll,
+                                 i, vp]
+    lib.clrs_expselect.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
+                                   ctypes.POINTER(ll), i, i, vp]
     for fn in (lib.clrs_limb_extract, lib.clrs_limb_gemm, lib.clrs_chol,
                lib.clrs_tri_solve, lib.clrs_int8_gemm, lib.clrs_cascade,
-               lib.clrs_plmap, lib.clrs_expmap, lib.clrs_tree_sum):
+               lib.clrs_plmap, lib.clrs_expmap, lib.clrs_tree_sum,
+               lib.clrs_expfuse, lib.clrs_expselect):
         fn.restype = i
     return lib
 

@@ -21,7 +21,9 @@ so a run can show which route it took (:func:`reset_counts`,
 | plmap_axpy         | plmap<NW, 1>               | pl_map, state update (solver/step.py:1244)     |
 | plmap_residual     | plmap<NW, 2 or 3>          | pl_map, residual R (solver/step.py:1387)       |
 | ew_add, ew_sub, ew_mul, ew_div, ew_neg, ew_symmetrize | expmap<NW, OP> (expmap.cu) | XLA-fused expops (dd/core.py:448-499) |
-| tree_sum           | tree_sum<NW> (expmap.cu)   | XLA-fused dd_sum (dd/linalg.py:110-127)        |
+| tree_sum, tree_sum_fused | tree_sum<NW, PRO> (exptree.cu) | XLA-fused dd_sum (dd/linalg.py:110-127) and the products and adds around it |
+| ew_fma, ew_fms, ew_msub, ew_mms, ew_sub2 | expfuse<NW, FORM> (expfuse.cu) | XLA-fused chains of expops (solver/step.py:1621) |
+| ew_select          | expselect<NW> (expfuse.cu) | the commit's jnp.where (solver/step.py:1661-1666) |
 
 The kernels are built for nw = 5..8, the f32 substrate's ladder; besides,
 limb_extract takes operands of 1..8 words to the limb count L its caller
@@ -34,13 +36,20 @@ The two forms of tri_solve_batched are also counted apart
 
 Operands are word tuples with a leading batch axis, as the JAX kernels'
 [L] grid axis; most kernels take them stacked word-major, [B, nw, ...];
-the ``plmap_*`` chains, the ``ew_*`` ops and ``tree_sum`` read each word
+the ``plmap_*`` chains, the ``ew_*`` ops and the tree sums read each word
 where it lies, through its strides (``ew_*`` over any broadcast shape,
-``tree_sum`` along any axis).
+``tree_sum``/``tree_sum_fused`` along any axis or run of consecutive
+axes); ``ew_select`` writes its destinations in place.
+
+The fused forms' plain versions compose the functions the plain versions
+of the fused ops run (``ew_fma_plain`` is ``ops.exp_mul`` then
+``ops.exp_add``), so each plain counter counts its own route only and the
+CPU's counters name the kernels the card launches.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -544,11 +553,100 @@ def tree_sum_plain(x, axis):
     return pairwise_sum(x, axis, O.exp_add)
 
 
+def flatten_sum_axes(p, axis):
+    """(words, axis): an int ``axis`` as it is; several consecutive axes
+    (or None, all) moved to the end and reshaped to one, row-major, as the
+    step's callers reshape them before a tree sum."""
+    if isinstance(axis, int):
+        return p, axis
+    shape = tuple(O.broadcast_shapes(*(c.shape for c in p)))
+    a0, a1 = sum_axes(axis, len(shape)) if shape else (0, 0)
+    tail = tuple(range(len(shape) - (a1 - a0), len(shape)))
+    return tuple(c.expand(shape).movedim(tuple(range(a0, a1)), tail)
+                 .reshape(shape[:a0] + shape[a1:] + (-1,)) for c in p), -1
+
+
+def _scaled(x, s):
+    """Each word times an exact word or float (solver/step.py _dd_scale)."""
+    return tuple(c * s for c in x)
+
+
+def _masked(r, mask):
+    return r if mask is None else _scaled(r, mask)
+
+
+# The fused forms' plain versions compose the same functions as the plain
+# versions of the ops they fuse (ops.exp_*, pairwise_sum), not those counted
+# plain versions: each counter counts its own route, as on the card.
+
+@_counted_plain
+def tree_sum_fused_plain(x, y, axis, acc=None, sub=False, scale=None,
+                         scale_on=None):
+    """acc +- tree sum over ``axis`` of x y (or x), with x or the product
+    scaled as ``scale_on`` says: the plain ew_mul, tree_sum and ew_add or
+    ew_sub in turn. Several consecutive axes (or None, all) are reshaped
+    to one, row-major, as the step's callers reshape them."""
+    if scale_on == "x":
+        x = _scaled(x, scale)
+    p = O.exp_mul(x, y) if y is not None else x
+    if scale_on == "product":
+        p = _scaled(p, scale)
+    p, axis = flatten_sum_axes(p, axis)
+    s = pairwise_sum(p, axis, O.exp_add)
+    if acc is not None:
+        s = (O.exp_sub if sub else O.exp_add)(acc, s)
+    return s
+
+
+@_counted_plain
+def ew_fma_plain(a, b, c, mask=None):
+    """(a + b c) [mask]: the plain ew_mul, then ew_add, then the mask."""
+    return _masked(O.exp_add(a, O.exp_mul(b, c)), mask)
+
+
+@_counted_plain
+def ew_fms_plain(a, b, c, mask=None):
+    """(a - b c) [mask]: the plain ew_mul, then ew_sub, then the mask."""
+    return _masked(O.exp_sub(a, O.exp_mul(b, c)), mask)
+
+
+@_counted_plain
+def ew_msub_plain(a, b, c, mask=None):
+    """(a b - c) [mask]: the plain ew_mul, then ew_sub, then the mask."""
+    return _masked(O.exp_sub(O.exp_mul(a, b), c), mask)
+
+
+@_counted_plain
+def ew_mms_plain(a, b, c, d, mask=None):
+    """(a b - c d) [mask]: two plain ew_mul, ew_sub, then the mask."""
+    return _masked(O.exp_sub(O.exp_mul(a, b), O.exp_mul(c, d)), mask)
+
+
+@_counted_plain
+def ew_sub2_plain(a, b, c, c_scale=None, mask=None):
+    """((a - b) - c s) [mask]: two plain ew_sub, c's words scaled first."""
+    cs = c if c_scale is None else _scaled(c, c_scale)
+    return _masked(O.exp_sub(O.exp_sub(a, b), cs), mask)
+
+
+@_counted_plain
+def ew_select_plain(cond, pairs):
+    """dst = torch.where(cond, src, dst), word by word, copied into dst
+    (the commit's select and assignment)."""
+    pairs = list(pairs)
+    for src, dst in pairs:
+        for d, c in zip(dst, src):
+            d.copy_(torch.where(cond, c, d))
+    return [dst for _, dst in pairs]
+
+
 _PLAIN = (limb_extract_plain, limb_gemm_plain, int8_gemm_plain,
           cascade_from_c_plain, cascade_from_diags_plain, chol_plain,
           tri_solve_plain, plmap_add_plain, plmap_axpy_plain,
           plmap_residual_plain, ew_add_plain, ew_sub_plain, ew_mul_plain,
-          ew_div_plain, ew_neg_plain, ew_symmetrize_plain, tree_sum_plain)
+          ew_div_plain, ew_neg_plain, ew_symmetrize_plain, tree_sum_plain,
+          tree_sum_fused_plain, ew_fma_plain, ew_fms_plain, ew_msub_plain,
+          ew_mms_plain, ew_sub2_plain, ew_select_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -969,8 +1067,11 @@ def tri_solve_batched(l, b, trans=False):
 
 EW_OPS = {"add": 0, "sub": 1, "mul": 2, "div": 3, "neg": 4, "symmetrize": 5}
 EW_MAX_DIMS = 6             # csrc/expmap.cu MAXD
-TREE_THREADS = 256          # csrc/expmap.cu TREE_THREADS
+TREE_THREADS = 256          # csrc/exptree.cu TREE_THREADS (block route)
 TREE_SMEM = 227 * 1024      # csrc/common.cuh SMEM_MAX
+TREE_CLUSTER = 8            # csrc/exptree.cu MAX_CLUSTER (portable size)
+TREE_SPREAD = 4 * TREE_THREADS   # level-1 entries one block walks alone
+TREE_SPREAD_COLS = 16       # ... where no more columns than this fill the card
 
 
 def coalesce(shape, strides):
@@ -1114,107 +1215,441 @@ def ew_symmetrize(x):
     return out
 
 
-def tree_sum_plan(n, nw, M, smem=TREE_SMEM):
-    """How tree_sum<NW> sums M columns of n entries: ("shared", C), C
-    columns a block with every level in shared memory (enough columns
-    that the first level's adds fill a block's threads, as many as fit);
-    or, where one column's n nw 4 bytes exceed ``smem`` (n >= 2),
-    ("levels", (n, ceil(n / 2), ..., 2)), one launch a level."""
-    per_col = 4 * nw * n
-    if per_col > smem and n > 1:
+def tree_sum_plan(n, nw, M, smem=TREE_SMEM, cluster=TREE_CLUSTER):
+    """How tree_sum<NW, PRO> (csrc/exptree.cu) sums M columns of n entries.
+    The first level is computed on load, so a column keeps h = ceil(n / 2)
+    entries of nw 4 bytes in shared memory:
+
+    - ("shared", C): C columns a block (as many as the block's threads take
+      one level-1 entry each, at least one, as many as fit ``smem``);
+    - ("cluster", G): one column over a cluster of G = 2..``cluster``
+      blocks, where h exceeds one block's ``smem`` (G the fewest that hold
+      it), or where a column of more than TREE_SPREAD entries would leave
+      one block's threads walking it alone (at most TREE_SPREAD_COLS
+      columns: G = ceil(h / TREE_SPREAD), up to ``cluster``);
+    - ("levels", (n, ceil(n / 2), ..., 2)): one launch a level, only where
+      h exceeds a full cluster's shared memory (about 186 k entries at nw
+      5); chosen by size, not on failure."""
+    h = (n + 1) // 2
+    cap = smem // (4 * nw)                 # level-1 entries a block holds
+    if h > cap * cluster and n > 1:
         levels, m = [], n
         while m > 1:
             levels.append(m)
             m = (m + 1) // 2
         return "levels", tuple(levels)
-    C = -(-TREE_THREADS // max(1, n // 2))
-    if per_col:
-        C = min(C, smem // per_col)
+    if cluster > 1:
+        G = -(-h // cap) if h > cap else 1
+        if h > TREE_SPREAD and M <= TREE_SPREAD_COLS:
+            G = max(G, min(cluster, -(-h // TREE_SPREAD)))
+        if G > 1:
+            return "cluster", G
+    C = TREE_THREADS // max(1, h)
+    if h:
+        C = min(C, cap // h)
     return "shared", max(1, min(C, M))
 
 
-def _tree_pack(ptrs, sts, axs, dims):
-    """ctypes arrays of a tree_sum launch's source: word pointers [8],
-    column strides [8][6] right-aligned, axis strides [8], the shared
-    flag, dims [6] and their count."""
-    st = (ctypes.c_longlong * (_MAX_NW * EW_MAX_DIMS))()
-    for k, s in enumerate(sts):
-        _place(st, k, s)
-    shared = int(all(s == sts[0] for s in sts)
-                 and all(a == axs[0] for a in axs))
-    return ((ctypes.c_void_p * _MAX_NW)(*ptrs), st,
-            (ctypes.c_longlong * _MAX_NW)(*axs), shared,
-            (ctypes.c_int * EW_MAX_DIMS)(*dims), len(dims))
+TreeLaunch = collections.namedtuple("TreeLaunch", (
+    "ptrs", "strides", "shared", "scale", "scale_st", "scale_c", "scale_on",
+    "dims", "nd", "ne", "dst", "ws", "cs", "es", "M", "n", "C", "G", "S",
+    "level", "pro", "epi"))
+TreeLaunch.__doc__ = """One clrs_tree_sum launch (csrc/exptree.cu), its C
+arguments in order: ctypes arrays of the word pointers [3][8] and strides
+[3][8][6] of x, y and acc over the dims (right-aligned), their shared flags
+[3]; the scale tensor (or None: the constant scale_c) with its strides [6]
+and where it applies (TREE_SCALE); the dims [6] (left-aligned), their count
+nd and the ne entry dims at their end; the destination tensor and its word,
+column and entry strides; M columns, n entries, C columns a block, G
+blocks a cluster, S level-1 entries a cluster block; level 0 (block or
+cluster route) or 1 (one level); pro (TREE_PRO) and epi (TREE_EPI)."""
+
+TREE_PRO = {None: 0, "mul": 1}
+TREE_EPI = {None: 0, "add": 1, "sub": 2}
+TREE_SCALE = {None: 0, "x": 1, "product": 2}
 
 
-def tree_sum_launches(x, axis, smem=TREE_SMEM):
-    """(output words, the tree_sum<NW> launches) of a tree sum of f32 words
-    ``x`` along ``axis``, as csrc/expmap.cu's clrs_tree_sum takes them:
-    each launch (its source's arrays from :func:`_tree_pack`, the
-    destination tensor with its word, column and entry strides, M columns,
-    m entries, C columns a block, level). The shared route is one launch;
-    the level route runs in a scratch buffer [nw, M, ceil(n / 2)] (one of
-    the destinations), the last level into the output. Nothing is launched
-    where the output is empty."""
-    nw, dev = _check_operands([x], "tree_sum")
-    shape = tuple(O.broadcast_shapes(*(c.shape for c in x)))
-    words = [c.expand(shape).movedim(axis, -1) for c in x]
-    n, cshape = words[0].shape[-1], tuple(words[0].shape[:-1])
+def sum_axes(axis, ndim):
+    """(a0, a1): the summed axes a0..a1-1 of an ``ndim``-dim shape, from an
+    int, a tuple of consecutive axes, or None (all)."""
+    if axis is None:
+        return 0, ndim
+    axes = sorted(a % ndim for a in ((axis,) if isinstance(axis, int)
+                                     else axis))
+    if not axes or axes != list(range(axes[0], axes[0] + len(axes))):
+        raise ValueError(f"summed axes must be consecutive, got {axis}")
+    return axes[0], axes[-1] + 1
+
+
+def _expanded(c, shape):
+    return tuple(0 if n == 1 else s for n, s in
+                 zip(shape, c.expand(shape).stride()))
+
+
+def _pack_views(groups, dims_sts):
+    """ctypes word pointers [len(groups)][8], strides [..][8][6]
+    (right-aligned) and shared flags of word groups (a group may be None:
+    null pointers), each word's strides over the coalesced dims taken in
+    order from ``dims_sts``."""
+    G = len(groups)
+    ptrs = (ctypes.c_void_p * (G * _MAX_NW))()
+    strides = (ctypes.c_longlong * (G * _MAX_NW * EW_MAX_DIMS))()
+    shared = (ctypes.c_int * G)()
+    k = 0
+    for j, words in enumerate(groups):
+        if words is None:
+            continue
+        st = dims_sts[k:k + len(words)]
+        shared[j] = int(all(v == st[0] for v in st))
+        for w, (c, v) in enumerate(zip(words, st)):
+            ptrs[j * _MAX_NW + w] = c.data_ptr()
+            _place(strides, j * _MAX_NW + w, v)
+        k += len(words)
+    return ptrs, strides, shared
+
+
+def _word1_strides(st):
+    arr = (ctypes.c_longlong * EW_MAX_DIMS)()
+    _place(arr, 0, st)
+    return arr
+
+
+def _check_scale(scale, dev, name):
+    if isinstance(scale, torch.Tensor):
+        if scale.dtype != torch.float32 or scale.device != dev:
+            raise ValueError(f"{name}: a scale or mask must be a float32 "
+                             f"tensor on {dev}")
+        return (scale,)
+    return ()
+
+
+def tree_sum_launches(x, axis, y=None, acc=None, sub=False, scale=None,
+                      scale_on=None, smem=TREE_SMEM, cluster=TREE_CLUSTER):
+    """(output words, the :class:`TreeLaunch` es) of acc +- the tree sum of
+    x (x s, or x y, x s y, (x y) s) over ``axis`` (:func:`sum_axes`), as
+    :func:`tree_sum_fused` launches them. x, y and the scale broadcast
+    together; acc broadcasts to the column shape (the shape without the
+    summed axes), which is the output's. The block and cluster routes are
+    one launch; the level route runs in a scratch buffer [nw, M, ceil(n /
+    2)], PRO on the first level, the epilogue on the last. Nothing is
+    launched where the output is empty."""
+    ops = [x] + ([y] if y is not None else []) + ([acc] if acc is not None
+                                                   else [])
+    nw, dev = _check_operands(ops, "tree_sum")
+    sc = _check_scale(scale, dev, "tree_sum")
+    if (scale is None) != (scale_on is None) or (
+            scale_on == "product" and y is None):
+        raise ValueError(f"tree_sum: scale {type(scale)} on {scale_on!r}")
+    xy = [x] + ([y] if y is not None else [])
+    shape = tuple(O.broadcast_shapes(*(c.shape for op in xy for c in op),
+                                     *(s.shape for s in sc)))
+    a0, a1 = sum_axes(axis, len(shape)) if shape else (0, 0)
+    cshape, eshape = shape[:a0] + shape[a1:], shape[a0:a1]
+    n, M = math.prod(eshape), math.prod(cshape)
+    if acc is not None:
+        ashape = tuple(O.broadcast_shapes(cshape, *(c.shape for c in acc)))
+        if ashape != cshape:
+            raise ValueError(f"tree_sum: acc {tuple(acc[0].shape)} does not "
+                             f"broadcast to the sum's shape {cshape}")
     out = torch.empty((nw,) + cshape, dtype=torch.float32, device=dev)
-    M = out[0].numel()
+    words = tuple(out[k] for k in range(nw))
     if M == 0:
-        return tuple(out[k] for k in range(nw)), []
-    dims, sts = coalesce(cshape, [tuple(0 if size == 1 else st for size, st
-                                        in zip(cshape, w.stride()[:-1]))
-                                  for w in words])
-    if len(dims) > EW_MAX_DIMS:
-        raise ValueError(f"tree_sum: {len(dims)} column dims after "
-                         f"coalescing {cshape}, at most {EW_MAX_DIMS}")
+        return words, []
+    perm = list(range(a0)) + list(range(a1, len(shape))) + list(range(a0, a1))
+    nc = len(cshape)
+    full = [tuple(_expanded(c, shape)[p] for p in perm)
+            for op in xy for c in op] + [
+        tuple(_expanded(s, shape)[p] for p in perm) for s in sc]
+    accs = [_expanded(c, cshape) + (0,) * len(eshape) for c in acc] \
+        if acc is not None else []
+    sts = full + accs
+    cdims, csts = coalesce(cshape, [st[:nc] for st in sts])
+    edims, ests = coalesce(eshape, [st[nc:] for st in sts]) if n else ((), [
+        () for _ in sts])
+    if len(cdims) + max(len(edims), 1) > EW_MAX_DIMS:
+        raise ValueError(f"tree_sum: {len(cdims)} column and {len(edims)} "
+                         f"entry dims after coalescing {shape}, at most "
+                         f"{EW_MAX_DIMS} in all")
     if M >= 1 << 31 or M * ((n + 1) // 2) >= 1 << 31:
         raise ValueError(f"tree_sum: {M} columns of {n}, the kernel indexes "
                          "them in 32 bits")
-    src = _tree_pack([w.data_ptr() for w in words], sts,
-                     [w.stride(-1) if n > 1 else 0 for w in words], dims)
+    dsts = [c + e for c, e in zip(csts, ests)]
+    nsrc = sum(len(op) for op in xy)
+    groups = [x, y, acc]
+    src_sts = dsts[:nsrc] + dsts[nsrc + len(sc):]
+    ptrs, strides, shared = _pack_views(groups, src_sts)
+    sc_t = sc[0] if sc else None
+    sc_st = _word1_strides(dsts[nsrc] if sc else ())
+    sc_c = float(scale) if scale is not None and not sc else 1.0
+    dims = cdims + edims
+    route, plan = tree_sum_plan(n, nw, M, smem, cluster)
+    pro = TREE_PRO["mul" if y is not None else None]
+    epi = TREE_EPI[None if acc is None else "sub" if sub else "add"]
+    son = TREE_SCALE[scale_on]
     to_out = (out, M, 1, 0)
-    route, plan = tree_sum_plan(n, nw, M, smem)
+
+    def launch(p, st, sh, dm, ne, dst, m, C, G, S, level, pro_, son_, epi_):
+        return TreeLaunch(p, st, sh, sc_t if son_ else None,
+                          sc_st, sc_c, son_,
+                          (ctypes.c_int * EW_MAX_DIMS)(*dm), len(dm), ne,
+                          *dst, M, m, C, G, S, level, pro_, epi_)
+
     if route == "shared":
-        launches = [src + to_out + (M, n, plan, 0)]
-    else:
-        half0 = (n + 1) // 2
-        scratch = torch.empty((nw, M, half0), dtype=torch.float32, device=dev)
-        in_scratch = _tree_pack([scratch[k].data_ptr() for k in range(nw)],
-                                [(half0,)] * nw, [1] * nw, (M,))
-        launches = []
-        for m in plan:
-            dst = to_out if m == 2 else (scratch, M * half0, half0, 1)
-            launches.append(src + dst + (M, m, 1, 1))
-            src = in_scratch
-    return tuple(out[k] for k in range(nw)), launches
+        return words, [launch(ptrs, strides, shared, dims, len(edims),
+                              to_out, n, plan, 1, 0, 0, pro, son, epi)]
+    if route == "cluster":
+        G = plan
+        return words, [launch(ptrs, strides, shared, dims, len(edims),
+                              to_out, n, 1, G, -(-((n + 1) // 2) // G), 0,
+                              pro, son, epi)]
+    half0 = (n + 1) // 2
+    scratch = torch.empty((nw, M, half0), dtype=torch.float32, device=dev)
+    # the scratch over the same column dims (row-major, as c unravels) and
+    # one entry dim; acc's strides over the column dims, 0 on the entry dim
+    cst, run = [], half0
+    for d in reversed(cdims):
+        cst.insert(0, run)
+        run *= d
+    sview = [tuple(cst) + (1,)] * nw
+    aview = [csts[nsrc + len(sc) + k] + (0,) for k in range(nw)] \
+        if acc is not None else []
+    s_ptrs, s_strides, s_shared = _pack_views(
+        [tuple(scratch[k] for k in range(nw)), None, acc], sview + aview)
+    launches = []
+    for i, m in enumerate(plan):
+        last = m == 2
+        dst = to_out if last else (scratch, M * half0, half0, 1)
+        if i == 0:
+            launches.append(launch(ptrs, strides, shared, dims, len(edims),
+                                   dst, m, 1, 1, 0, 1, pro, son,
+                                   epi if last else 0))
+        else:
+            launches.append(launch(s_ptrs, s_strides, s_shared,
+                                   cdims + (m,), 1, dst, m, 1, 1, 0, 1, 0, 0,
+                                   epi if last else 0))
+    return words, launches
+
+
+def _tree_run(launches, nw):
+    from .build import library
+
+    lib = library()
+    for ln in launches:
+        rc = lib.clrs_tree_sum(
+            ln.ptrs, ln.strides, ln.shared,
+            None if ln.scale is None else _ptr(ln.scale), ln.scale_st,
+            ln.scale_c, ln.scale_on, ln.dims, ln.nd, ln.ne, _ptr(ln.dst),
+            ln.ws, ln.cs, ln.es, ln.M, ln.n, ln.C, ln.G, ln.S, ln.level,
+            ln.pro, ln.epi, nw, _stream())
+        _launched(rc, "tree_sum")
 
 
 def tree_sum(x, axis):
-    """Tree sum along ``axis`` as tree_sum<NW> launches (one, or one a
-    level where a column exceeds shared memory); see
+    """Tree sum along ``axis`` as tree_sum<NW, PRO_NONE> launches (one, or
+    one a level past a full cluster's shared memory); see
     :func:`tree_sum_plain`."""
     _refuse_f64("tree_sum", x)
     if not _route(x[0]):
         return tree_sum_plain(x, axis)
+    out, launches = tree_sum_launches(x, axis)
+    _tree_run(launches, len(x))
+    tree_sum.launches += len(launches)
+    return out
+
+
+def tree_sum_fused(x, y, axis, acc=None, sub=False, scale=None,
+                   scale_on=None):
+    """acc +- sum over ``axis`` of x y (``y`` None: of x), x's words or the
+    product's times the exact word ``scale`` where ``scale_on`` is "x" or
+    "product", as one tree_sum<NW, PRO> launch (one a level only past a
+    full cluster's shared memory); see :func:`tree_sum_fused_plain`. The
+    summed axes are consecutive (:func:`sum_axes`) and their entries are
+    taken in row-major order, as a reshape of them to one axis orders
+    them."""
+    _refuse_f64("tree_sum_fused", x, () if y is None else y,
+                () if acc is None else acc)
+    if not _route(x[0]):
+        return tree_sum_fused_plain(x, y, axis, acc, sub, scale, scale_on)
+    out, launches = tree_sum_launches(x, axis, y, acc, sub, scale, scale_on)
+    _tree_run(launches, len(x))
+    tree_sum_fused.launches += len(launches)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the step's fused forms and the commit's select (csrc/expfuse.cu)
+# ---------------------------------------------------------------------------
+
+EW_FORMS = {"fma": 0, "fms": 1, "msub": 2, "mms": 3, "sub2": 4}
+SELECT_MAX_SEGS = 24        # csrc/expfuse.cu MAXSEG
+
+
+def ew_fuse_pack(ops, scale=None, sc_op=-1, mask=None):
+    """The host arguments of one expfuse launch on word tuples ``ops`` (3
+    or 4 operands), the exact ``scale`` of operand ``sc_op`` (a float32
+    tensor, a float, or None) and the result's ``mask`` (a float32 tensor
+    or None), as csrc/expfuse.cu reads them: (output shape, numel, the
+    output words, ctypes arrays of the word pointers [4][8], strides
+    [4][8][6], shared flags [4], the scale's strides [6], the mask's
+    strides [6], the output's word pointers [8] and strides [6], the dims
+    [6] and their count). Everything broadcasts together, as PyTorch
+    broadcasts the composition; the output is a fresh [nw, shape] buffer."""
+    nw, dev = _check_operands(ops, "expfuse")
+    sc = _check_scale(scale, dev, "expfuse")
+    mk = _check_scale(mask, dev, "expfuse")
+    shape = tuple(O.broadcast_shapes(*(c.shape for op in ops for c in op),
+                                     *(t.shape for t in sc + mk)))
+    out = torch.empty((nw,) + shape, dtype=torch.float32, device=dev)
+    words = tuple(out[k] for k in range(nw))
+    sts = [_expanded(c, shape) for op in ops for c in op] + \
+        [_expanded(t, shape) for t in sc + mk] + [words[0].stride()]
+    dims, csts = coalesce(shape, sts)
+    if len(dims) > EW_MAX_DIMS:
+        raise ValueError(f"expfuse: {len(dims)} dims after coalescing "
+                         f"{shape}, at most {EW_MAX_DIMS}")
+    nsrc = sum(len(op) for op in ops)
+    groups = list(ops) + [None] * (4 - len(ops))
+    ptrs, strides, shared = _pack_views(groups, csts[:nsrc])
+    rest = csts[nsrc:]
+    sc_st = _word1_strides(rest[0] if sc else ())
+    mk_st = _word1_strides(rest[len(sc)] if mk else ())
+    outp = (ctypes.c_void_p * _MAX_NW)(*(w.data_ptr() for w in words))
+    return (shape, math.prod(shape), words, ptrs, strides, shared, sc_st,
+            mk_st, outp, _word1_strides(rest[-1]),
+            (ctypes.c_int * EW_MAX_DIMS)(*dims), len(dims))
+
+
+def _fuse(form, wrapper, ops, scale=None, sc_op=-1, mask=None):
     from .build import library
 
-    out, launches = tree_sum_launches(x, axis)
+    name = wrapper.__name__
+    (shape, numel, words, ptrs, strides, shared, sc_st, mk_st, outp, out_st,
+     dims, nd) = ew_fuse_pack(ops, scale, sc_op, mask)
+    if numel == 0:
+        return words
+    if numel >= 1 << 31:
+        raise ValueError(f"{name}: {numel} elements, the kernel indexes "
+                         "them in 32 bits")
+    sc_t = scale if isinstance(scale, torch.Tensor) else None
+    rc = library().clrs_expfuse(
+        EW_FORMS[form], ptrs, strides, shared,
+        None if sc_t is None else _ptr(sc_t), sc_st,
+        1.0 if scale is None or sc_t is not None else float(scale),
+        sc_op if scale is not None else -1,
+        None if mask is None else _ptr(mask), mk_st, outp, out_st, dims, nd,
+        numel, len(ops[0]), _stream())
+    _launched(rc, name)
+    wrapper.launches += 1
+    return words
+
+
+def _fuse_route(name, ops, *words1):
+    _refuse_f64(name, *ops)
+    for t in words1:
+        if isinstance(t, torch.Tensor) and t.dtype == torch.float64:
+            raise ValueError(f"{name}: f64 words are not an f32 kernel's "
+                             "input (use the f64 substrate's forms)")
+    return _route(ops[0][0])
+
+
+def ew_fma(a, b, c, mask=None):
+    """(a + b c) [mask] as one expfuse launch; see :func:`ew_fma_plain`."""
+    if not _fuse_route("ew_fma", (a, b, c), mask):
+        return ew_fma_plain(a, b, c, mask)
+    return _fuse("fma", ew_fma, (a, b, c), mask=mask)
+
+
+def ew_fms(a, b, c, mask=None):
+    """(a - b c) [mask] as one expfuse launch; see :func:`ew_fms_plain`."""
+    if not _fuse_route("ew_fms", (a, b, c), mask):
+        return ew_fms_plain(a, b, c, mask)
+    return _fuse("fms", ew_fms, (a, b, c), mask=mask)
+
+
+def ew_msub(a, b, c, mask=None):
+    """(a b - c) [mask] as one expfuse launch; see :func:`ew_msub_plain`."""
+    if not _fuse_route("ew_msub", (a, b, c), mask):
+        return ew_msub_plain(a, b, c, mask)
+    return _fuse("msub", ew_msub, (a, b, c), mask=mask)
+
+
+def ew_mms(a, b, c, d, mask=None):
+    """(a b - c d) [mask] as one expfuse launch; see :func:`ew_mms_plain`."""
+    if not _fuse_route("ew_mms", (a, b, c, d), mask):
+        return ew_mms_plain(a, b, c, d, mask)
+    return _fuse("mms", ew_mms, (a, b, c, d), mask=mask)
+
+
+def ew_sub2(a, b, c, c_scale=None, mask=None):
+    """((a - b) - c s) [mask], s an exact word or float on each of c's
+    words, as one expfuse launch; see :func:`ew_sub2_plain`."""
+    if not _fuse_route("ew_sub2", (a, b, c), c_scale, mask):
+        return ew_sub2_plain(a, b, c, c_scale, mask)
+    return _fuse("sub2", ew_sub2, (a, b, c), c_scale, 2, mask)
+
+
+def select_segments(cond, pairs):
+    """The expselect launches of ``pairs`` [(src words, dst words)]: lists
+    of at most SELECT_MAX_SEGS (src, dst) pairs, empty ones left out.
+    Every word must be a contiguous float32 tensor on cond's device, each
+    pair's words of one shape; cond a bool tensor of one element."""
+    if cond.dtype != torch.bool or cond.numel() != 1:
+        raise ValueError(f"ew_select: cond must be one bool, got "
+                         f"{cond.dtype} {tuple(cond.shape)}")
+    segs = []
+    for src, dst in pairs:
+        nw, dev = _check_operands([src, dst], "ew_select")
+        if dev != cond.device:
+            raise ValueError(f"ew_select: cond on {cond.device}, words on "
+                             f"{dev}")
+        for c in src + dst:
+            if c.shape != src[0].shape or not c.is_contiguous():
+                raise ValueError("ew_select: every word of a pair must be "
+                                 f"contiguous and of shape {tuple(src[0].shape)}")
+        if src[0].numel():
+            segs.append((src, dst))
+    return [segs[i:i + SELECT_MAX_SEGS]
+            for i in range(0, len(segs), SELECT_MAX_SEGS)]
+
+
+def ew_select(cond, pairs):
+    """dst = cond ? src : dst for every word of each (src, dst) pair of
+    word tuples, in place, cond a device bool that no host reads: one
+    expselect launch for up to SELECT_MAX_SEGS pairs; see
+    :func:`ew_select_plain`. Returns the dst tuples."""
+    pairs = list(pairs)
+    if not pairs:
+        return []
+    for src, dst in pairs:
+        _refuse_f64("ew_select", src, dst)
+    if not _route(pairs[0][0][0]):
+        return ew_select_plain(cond, pairs)
+    from .build import library
+
     lib = library()
-    for args in launches:
-        dst = args[6]
-        rc = lib.clrs_tree_sum(*args[:6], _ptr(dst), *args[7:], len(x),
-                               _stream())
-        _launched(rc, "tree_sum")
-        tree_sum.launches += 1
-    return out
+    for chunk in select_segments(cond, pairs):
+        nw = len(chunk[0][0])
+        dptr = (ctypes.c_void_p * (len(chunk) * _MAX_NW))()
+        sptr = (ctypes.c_void_p * (len(chunk) * _MAX_NW))()
+        numel = (ctypes.c_longlong * len(chunk))()
+        for j, (src, dst) in enumerate(chunk):
+            if len(src) != nw:
+                raise ValueError("ew_select: pairs of several word counts")
+            for k in range(nw):
+                sptr[j * _MAX_NW + k] = src[k].data_ptr()
+                dptr[j * _MAX_NW + k] = dst[k].data_ptr()
+            numel[j] = src[0].numel()
+        rc = lib.clrs_expselect(_ptr(cond), dptr, sptr, numel, len(chunk),
+                                nw, _stream())
+        _launched(rc, "ew_select")
+        ew_select.launches += 1
+    return [dst for _, dst in pairs]
 
 
 _COUNTED = (limb_extract, limb_gemm, int8_gemm, cascade_from_c,
             cascade_from_diags, chol_batched, tri_solve_batched, plmap_add,
             plmap_axpy, plmap_residual, ew_add, ew_sub, ew_mul, ew_div,
-            ew_neg, ew_symmetrize, tree_sum)
+            ew_neg, ew_symmetrize, tree_sum, tree_sum_fused, ew_fma, ew_fms,
+            ew_msub, ew_mms, ew_sub2, ew_select)
 _COUNTED_NAMES = frozenset(f.__name__ for f in _COUNTED)
 reset_counts()

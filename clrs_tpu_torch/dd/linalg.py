@@ -31,7 +31,8 @@ from .arith import dd_add, dd_div, dd_mul, dd_sub, is_f64
 from .limb_gemm import fx_matmul
 from .slice_gemm import slice_matmul
 
-__all__ = ["dd_zeros", "dd_eye", "dd_transpose", "dd_sum", "dd_dot",
+__all__ = ["dd_zeros", "dd_eye", "dd_transpose", "dd_sum", "dd_sum_prod",
+           "dd_dot",
            "dd_max_abs", "dd_matmul", "bmm", "dd_symmetrize", "b_cholesky",
            "b_solve_tril", "b_solve_tril_t", "b_solve_cholesky",
            "s_cholesky", "s_solve_tril", "s_solve_tril_t", "s_solve_cholesky"]
@@ -62,11 +63,34 @@ def dd_sum(x, axis):
     return K.tree_sum(x, axis)
 
 
-def dd_dot(x, y):
-    """Expansion trace inner product sum(x * y) over all elements (f32:
-    one expmap and one tree_sum launch for CUDA words)."""
-    p = dd_mul(x, y)
-    return dd_sum(tuple(c.reshape(-1) for c in p), axis=0)
+def dd_sum_prod(x, y, axis, acc=None, sub=False, scale=None, scale_on="x"):
+    """acc +- dd_sum(x y) over ``axis`` (``y`` None: of x), x's words (or,
+    ``scale_on="product"``, the product's) times the exact word or float
+    ``scale`` first. ``axis`` is an int, consecutive axes or None (all):
+    their entries are summed in row-major order, as a reshape of them to
+    one axis orders them. f32 words: one tree_sum<NW, PRO> launch for CUDA
+    words (:func:`.kernels.tree_sum_fused`), the composition of the plain
+    ops for CPU words; f64 words: the composition of dd_mul, dd_sum and
+    dd_add or dd_sub."""
+    if scale is None:
+        scale_on = None
+    if not is_f64(x):
+        return K.tree_sum_fused(x, y, axis, acc, sub, scale, scale_on)
+    if scale_on == "x":
+        x = tuple(c * scale for c in x)
+    p = dd_mul(x, y) if y is not None else x
+    if scale_on == "product":
+        p = tuple(c * scale for c in p)
+    s = dd_sum(*K.flatten_sum_axes(p, axis))
+    if acc is None:
+        return s
+    return dd_sub(acc, s) if sub else dd_add(acc, s)
+
+
+def dd_dot(x, y, acc=None):
+    """Expansion trace inner product [acc +] sum(x * y) over all elements
+    (f32: one tree_sum<NW, PRO_MUL> launch for CUDA words)."""
+    return dd_sum_prod(x, y, None, acc)
 
 
 def dd_max_abs(x):

@@ -78,9 +78,9 @@ def dist_pairs_schur(k, Ulw_loc, Ur_loc, Xinv, Y, comm):
     G2 = dl.bmm(dl.bmm(L2, M2), R2)                 # [2Lc, PTl, PT]
     gx5 = tuple(c[:Lc].reshape(Lc, Pl, T, P, T) for c in G2)
     gy5 = tuple(c[Lc:].reshape(Lc, Pl, T, P, T) for c in G2)
-    v = dd_mul(gx5, gy5)
-    vt = tuple(c.movedim(2, 3).reshape(Lc, Pl, P, T * T) for c in v)
-    S_loc = dl.dd_sum(dl.dd_sum(vt, axis=3), axis=0)      # [Pl, P]
+    inner = dl.dd_sum_prod(tuple(c.movedim(2, 3) for c in gx5),
+                           tuple(c.movedim(2, 3) for c in gy5), (3, 4))
+    S_loc = dl.dd_sum(inner, axis=0)                      # [Pl, P]
     idx = torch.arange(PTl, device=G2[0].device)
     col0 = comm.rank * PTl
     dgy = tuple(c[Lc:][:, idx, col0 + idx] for c in G2)   # [Lc, PTl]

@@ -64,7 +64,8 @@ from ..dd import core as host_core
 from ..dd import kernels as dk
 from ..dd import linalg as dl
 from ..dd import ops as O
-from ..dd.arith import dd_add, dd_div, dd_mul, dd_neg, dd_sub
+from ..dd.arith import (dd_add, dd_commit, dd_div, dd_fma, dd_fms, dd_mms,
+                        dd_msub, dd_mul, dd_neg, dd_sub, dd_sub2)
 from ..dd.limb_gemm import fx_matmul, host_precompute
 from ..device import DEFAULT_DEVICE, resolve_device
 
@@ -166,13 +167,16 @@ def _s_axis(cl):
     return 0 if cl.shard_j else (1 if cl.shard_bs else None)
 
 
-def _dot(cl, x, y, dim):
-    """sum(x * y) over all elements (:func:`dl.dd_dot`), with the products
-    gathered along ``dim`` first where it is sharded (``dim`` None: not)."""
-    p = dd_mul(x, y)
-    if dim is not None:
-        p = cl.comm.all_gather(p, dim)
-    return dl.dd_sum(tuple(c.reshape(-1) for c in p), axis=0)
+def _dot(cl, x, y, dim, acc, scale=None):
+    """acc + sum(x s * y) over all elements (s an exact mask, or none):
+    one fused product-sum-accumulate (:func:`dl.dd_sum_prod`) where
+    ``dim`` is None; where ``dim`` is sharded the products are gathered
+    along it first, so the product and the sum run apart."""
+    if dim is None:
+        return dl.dd_sum_prod(x, y, None, acc, scale=scale)
+    p = dd_mul(x if scale is None else _dd_scale(x, scale), y)
+    p = cl.comm.all_gather(p, dim)
+    return dd_add(acc, dl.dd_sum(tuple(c.reshape(-1) for c in p), axis=0))
 
 
 @dataclasses.dataclass
@@ -654,28 +658,50 @@ def _trace_A_cluster(cl: _DevCluster, Zs, Zsc, panels=None):
                 else:                                 # GY [L, PT, PT]
                     g = tuple(torch.diagonal(c, dim1=1, dim2=2)
                               .reshape(L, P_, T) for c in pan)
-                v = dd_mul(k.lam, g)                  # tmask already in U
+                mask = None                           # tmask already in U
             elif have_panel:
                 g = _gather_b(panels[ki], k.li, k.ri)
-                v = _dd_scale(dd_mul(k.lam, g), k.tmask)
+                mask = k.tmask
             else:
                 # Hadamard: <A_p, Z> = sum_t lam (Ul Z)[pt,:] . Ur[pt,:]
                 if k.Ulpre_l is not None:
                     UZ = _bmm_pre_l(Z, k.Ulpre_l, cl.nw)
                 else:
                     UZ = _bmm(k.Ul, Z)
-                h = dl.dd_sum(dd_mul(UZ, k.Ur), axis=2)
-                v = dd_mul(k.lam, tuple(c.reshape(L, P_, T) for c in h))
-            v = _class_terms(cl, k, v)
-            s = dl.dd_sum(tuple(c.movedim(1, 2).reshape(J, -1, P)
-                                for c in v), axis=1)
-            tot = dd_add(tot, s)
-        else:
+                h = dl.dd_sum_prod(UZ, k.Ur, 2)
+                g = tuple(c.reshape(L, P_, T) for c in h)
+                mask = None
+            if k.shard and not cl.shard_j:      # gathered between
+                v = dd_mul(k.lam, g)
+                if mask is not None:
+                    v = _dd_scale(v, mask)
+                v = _class_terms(cl, k, v)
+                s = dl.dd_sum(tuple(c.movedim(1, 2).reshape(J, -1, P)
+                                    for c in v), axis=1)
+                tot = dd_add(tot, s)
+            else:
+                # the same sum over each cluster's (block, t) entries, one
+                # launch: [L, P, T] viewed as [J, P, Lc, T]
+                def jp(x):
+                    return tuple(c.reshape(J, -1, P_, T).movedim(2, 1)
+                                 for c in x)
+                tot = dl.dd_sum_prod(jp(k.lam), jp(g), (2, 3), tot,
+                                     scale=None if mask is None
+                                     else jp((mask,))[0],
+                                     scale_on="product")
+        elif k.shard and not cl.shard_j:
             prod = _class_terms(cl, k, dd_mul(k.A, tuple(c[:, None]
                                                          for c in Z)))
             flat = tuple(c.reshape(J, k.Lc, P, k.n, k.n).movedim(2, 1)
                          .reshape(J, P, -1) for c in prod)
             tot = dd_add(tot, dl.dd_sum(flat, axis=2))
+        else:
+            # [L, P, n, n] products viewed as [J, P, Lc, n, n], one launch
+            A5 = tuple(c.reshape(J, k.Lc, P, k.n, k.n).movedim(2, 1)
+                       for c in k.A)
+            Z5 = tuple(c.reshape(J, k.Lc, 1, k.n, k.n).movedim(2, 1)
+                       for c in Z)
+            tot = dl.dd_sum_prod(A5, Z5, (2, 3, 4), tot)
     if cl.s_nb:
         sa = cl.sa
         if cl.shard_bs:
@@ -705,7 +731,7 @@ def _weighted_A_cluster(cl: _DevCluster, a):
                 out.append(_bmm(dl.dd_transpose(wUl), k.Ur))
         else:
             ab = tuple(c[:, :, None, None] for c in ab)
-            out.append(dl.dd_sum(dd_mul(k.A, ab), axis=1))
+            out.append(dl.dd_sum_prod(k.A, ab, 1))
     if cl.s_nb:
         sa = cl.sa_full if cl.shard_bs else cl.sa
         r = _bmm(sa, tuple(c[:, :, None] for c in a))
@@ -732,12 +758,12 @@ def _schur_cluster(cl: _DevCluster, Xinvs, Ys, Xinv_s, Y_s, panels=None):
                 gx5 = tuple(c.reshape(L, P_, T, P_, T) for c in GXw)
                 gy5 = tuple(c.transpose(1, 2).reshape(L, P_, T, P_, T)
                             for c in GY)
-                v = dd_mul(gx5, gy5)
-                vt = tuple(c.movedim(2, 3).reshape(L, P_, P_, T * T)
-                           for c in v)
-                contrib = _class_terms(cl, k, dl.dd_sum(vt, axis=3))
-                S = dd_add(S, dl.dd_sum(tuple(
-                    c.reshape(J, k.Lc, P, P) for c in contrib), axis=1))
+                inner = dl.dd_sum_prod(tuple(c.movedim(2, 3) for c in gx5),
+                                       tuple(c.movedim(2, 3) for c in gy5),
+                                       (3, 4))
+                contrib = _class_terms(cl, k, inner)
+                S = dl.dd_sum_prod(tuple(c.reshape(J, k.Lc, P, P)
+                                         for c in contrib), None, 1, S)
                 continue
             if panels is not None and panels[ki] is not None:
                 PX, PY = panels[ki]
@@ -755,15 +781,16 @@ def _schur_cluster(cl: _DevCluster, Xinvs, Ys, Xinv_s, Y_s, panels=None):
                 ri1 = k.ri[:, :, t1, None, None]
                 gx = tuple(c[lidx, li1, ri2] for c in PX)
                 gy = tuple(c[lidx, ri1, li2] for c in PYT)
-                v = dd_mul(lam2, dd_mul(gx, gy))
-                v = _dd_scale(v, m2 * k.tmask[:, :, t1, None, None])
-                inner = dl.dd_sum(v, axis=3)
+                inner = dl.dd_sum_prod(
+                    lam2, dd_mul(gx, gy), 3,
+                    scale=m2 * k.tmask[:, :, t1, None, None],
+                    scale_on="product")
                 lam1 = tuple(c[:, :, t1, None] for c in k.lam)
-                term = dd_mul(lam1, inner)
-                contrib = term if contrib is None else dd_add(contrib, term)
+                contrib = (dd_mul(lam1, inner) if contrib is None
+                           else dd_fma(contrib, lam1, inner))
             contrib = _class_terms(cl, k, contrib)
-            S = dd_add(S, dl.dd_sum(tuple(
-                c.reshape(J, k.Lc, P, P) for c in contrib), axis=1))
+            S = dl.dd_sum_prod(tuple(c.reshape(J, k.Lc, P, P)
+                                     for c in contrib), None, 1, S)
         else:
             LP = k.L * P
             Af = tuple(c.reshape(LP, k.n, k.n) for c in k.A)
@@ -771,12 +798,11 @@ def _schur_cluster(cl: _DevCluster, Xinvs, Ys, Xinv_s, Y_s, panels=None):
             Yr = tuple(torch.repeat_interleave(c, P, dim=0) for c in Y)
             XAY = _bmm(_bmm(Xr, Af), Yr)
             XAYb = tuple(c.reshape(k.L, P, k.n, k.n) for c in XAY)
-            prod = dd_mul(tuple(c[:, :, None] for c in k.A),
-                          tuple(c[:, None] for c in XAYb))
-            terms = _class_terms(cl, k, dl.dd_sum(tuple(
-                c.reshape(k.L, P, P, -1) for c in prod), axis=3))
-            S = dd_add(S, dl.dd_sum(tuple(c.reshape(J, k.Lc, P, P)
-                                          for c in terms), axis=1))
+            inner = dl.dd_sum_prod(tuple(c[:, :, None] for c in k.A),
+                                   tuple(c[:, None] for c in XAYb), (3, 4))
+            terms = _class_terms(cl, k, inner)
+            S = dl.dd_sum_prod(tuple(c.reshape(J, k.Lc, P, P)
+                                     for c in terms), None, 1, S)
     if cl.s_nb:
         w = dd_mul(Xinv_s, Y_s)
         sa = cl.sa
@@ -836,11 +862,10 @@ def _dot_state(ds, A, B):
     tot = _scalar(torch.zeros((), dtype=ds.dtype, device=ds.device), ds.nw)
     for j, cl in enumerate(ds.clusters):
         for k, Xb, Yb in zip(cl.classes, A["X"][j], B["Y"][j]):
-            tot = dd_add(tot, _dot(cl, _dd_scale(Xb, k.maskd), Yb,
-                                   0 if k.shard else None))
+            tot = _dot(cl, Xb, Yb, 0 if k.shard else None, tot, k.maskd)
         if cl.s_nb:
-            tot = dd_add(tot, _dot(cl, _dd_scale(A["Xs"][j], cl.smask),
-                                   B["Ys"][j], _s_axis(cl)))
+            tot = _dot(cl, A["Xs"][j], B["Ys"][j], _s_axis(cl), tot,
+                       cl.smask)
     return tot
 
 
@@ -862,22 +887,21 @@ def _residuals(ds: DeviceSDP, state, panelsY=None):
     Pres, Pres_s, dres = [], [], []
     for j, cl in enumerate(ds.clusters):
         wA, wA_s = _weighted_A_cluster(cl, x[j])
-        Pres.append([_dd_scale(dd_sub(dd_sub(wA[ki], state["X"][j][ki]),
-                                      _dd_scale(k.C, ds.sign)), k.maskd)
+        Pres.append([dd_sub2(wA[ki], state["X"][j][ki], k.C, ds.sign,
+                             k.maskd)
                      for ki, k in enumerate(cl.classes)])
         if cl.s_nb:
-            Ps = dd_sub(dd_sub(wA_s, state["Xs"][j]),
-                        _dd_scale(cl.sC, ds.sign))
-            Pres_s.append(_dd_scale(Ps, cl.smask))
+            Pres_s.append(dd_sub2(wA_s, state["Xs"][j], cl.sC, ds.sign,
+                                  cl.smask))
         else:
             Pres_s.append(dl.dd_zeros((cl.J, 0), ds.nw, ds.device,
                                       ds.dtype))
         yb = tuple(c[None, :, None].expand(cl.J, c.shape[0], 1) for c in y)
         By = _bmm(cl.B, yb)
-        d_j = dd_sub(dd_sub(cl.c, tuple(c[:, :, 0] for c in By)),
-                     _trace_A_cluster(cl, state["Y"][j], state["Ys"][j],
-                                      panels=None if panelsY is None
-                                      else panelsY[j]))
+        d_j = dd_sub2(cl.c, tuple(c[:, :, 0] for c in By),
+                      _trace_A_cluster(cl, state["Y"][j], state["Ys"][j],
+                                       panels=None if panelsY is None
+                                       else panelsY[j]))
         dres.append(d_j)
     pres = _dd_scale(ds.b, ds.sign)
     for j, cl in enumerate(ds.clusters):
@@ -897,18 +921,16 @@ def _objectives(ds: DeviceSDP, state):
     zero = torch.zeros((), dtype=ds.dtype, device=ds.device)
     dot_cx = _scalar(zero, ds.nw)
     for j, cl in enumerate(ds.clusters):
-        dot_cx = dd_add(dot_cx, _dot(cl, cl.c, x[j],
-                                     0 if cl.shard_j else None))
+        dot_cx = _dot(cl, cl.c, x[j], 0 if cl.shard_j else None, dot_cx)
     d_obj = dd_add(_dd_scale(dot_cx, ds.sign), ds.constant)
     CY = _scalar(zero, ds.nw)
     for j, cl in enumerate(ds.clusters):
         for k, Yb in zip(cl.classes, state["Y"][j]):
             # C is zero on padding
-            CY = dd_add(CY, _dot(cl, k.C, Yb, 0 if k.shard else None))
+            CY = _dot(cl, k.C, Yb, 0 if k.shard else None, CY)
         if cl.s_nb:
-            CY = dd_add(CY, _dot(cl, cl.sC, state["Ys"][j], _s_axis(cl)))
-    by = dl.dd_dot(ds.b, y)
-    p_obj = dd_add(dd_add(CY, by), ds.constant)
+            CY = _dot(cl, cl.sC, state["Ys"][j], _s_axis(cl), CY)
+    p_obj = dd_add(dl.dd_dot(ds.b, y, CY), ds.constant)
     diff = dd_sub(d_obj, p_obj)
     gap_num = _f64sum(diff).abs()
     denom = torch.clamp((_f64sum(d_obj) + _f64sum(p_obj)).abs(), min=1.0)
@@ -1116,16 +1138,15 @@ def _axpy_state(state, dx, dy, dX, dY, dXs, dYs, alpha_d, alpha_p,
         def fma(Mb, dMb, a):
             return dk.plmap_axpy(Mb, dMb, _bcast_words(a[:3], Mb[0].shape[0]))
     else:
-        def fma(Mb, dMb, a):
-            return dd_add(Mb, dd_mul(dMb, a))
+        fma = dd_fma
     X = [[fma(Xb, dXb, ad) for Xb, dXb in zip(Xc, dXc)]
          for Xc, dXc in zip(state["X"], dX)]
     Y = [[fma(Yb, dYb, ap) for Yb, dYb in zip(Yc, dYc)]
          for Yc, dYc in zip(state["Y"], dY)]
-    x = [dd_add(xj, dd_mul(dxj, ad)) for xj, dxj in zip(state["x"], dx)]
-    y = dd_add(state["y"], dd_mul(dy, ap))
-    Xs = [dd_add(a, dd_mul(b, ad)) for a, b in zip(state["Xs"], dXs)]
-    Ys = [dd_add(a, dd_mul(b, ap)) for a, b in zip(state["Ys"], dYs)]
+    x = [dd_fma(xj, dxj, ad) for xj, dxj in zip(state["x"], dx)]
+    y = dd_fma(state["y"], dy, ap)
+    Xs = [dd_fma(a, b, ad) for a, b in zip(state["Xs"], dXs)]
+    Ys = [dd_fma(a, b, ap) for a, b in zip(state["Ys"], dYs)]
     return {"x": x, "y": y, "X": X, "Y": Y, "Xs": Xs, "Ys": Ys}
 
 
@@ -1260,18 +1281,22 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                         continue
                     eye_b = tuple(c.expand(k.L, k.n, k.n)
                                   for c in dl.dd_eye(k.n, nw, dev, dt))
-                    Rb = dd_sub(dd_mul(mu_val, eye_b), XYs[j][ki])
-                    if dXdY is not None:
-                        Rb = dd_sub(Rb, dXdY)
+                    if dXdY is None:
+                        Rc.append(dd_msub(mu_val, eye_b, XYs[j][ki],
+                                          k.maskd))
+                        continue
+                    Rb = dd_sub(dd_msub(mu_val, eye_b, XYs[j][ki]), dXdY)
                     Rc.append(_dd_scale(Rb, k.maskd))
                 Rs.append(Rc)
                 if cl.s_nb:
                     ones = torch.ones((cl.J, cl.s_nb), dtype=dt, device=dev)
-                    Rb = dd_sub(dd_mul(mu_val, _scalar(ones, nw)),
-                                dd_mul(Xs[j], Ys[j]))
-                    if corr is not None:
-                        Rb = dd_sub(Rb, dd_mul(corr[2][j], corr[3][j]))
-                    Rs_s.append(_dd_scale(Rb, cl.smask))
+                    if corr is None:
+                        Rs_s.append(dd_mms(mu_val, _scalar(ones, nw), Xs[j],
+                                           Ys[j], cl.smask))
+                    else:
+                        Rb = dd_mms(mu_val, _scalar(ones, nw), Xs[j], Ys[j])
+                        Rs_s.append(dd_fms(Rb, corr[2][j], corr[3][j],
+                                           cl.smask))
                 else:
                     Rs_s.append(dl.dd_zeros((cl.J, 0), nw, dev, dt))
             return Rs, Rs_s
@@ -1325,8 +1350,8 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                     Xinv[j][ki], dd_sub(PYprod[j][ki], Rcur[j][ki])))
                     for ki in range(len(cl.classes))])
                 if cl.s_nb:
-                    Zs_s.append(dd_mul(Xinv_s[j], dd_sub(
-                        dd_mul(Pres_s[j], Ys[j]), Rcur_s[j])))
+                    Zs_s.append(dd_mul(Xinv_s[j], dd_msub(
+                        Pres_s[j], Ys[j], Rcur_s[j])))
                 else:
                     Zs_s.append(dl.dd_zeros((cl.J, 0), nw, dev, dt))
             # rhs_x = -d - <A_*, Z>
@@ -1347,7 +1372,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                               else ty)
             dy = _col(pres)
             for ty in temp_y:
-                dy = dd_sub(dy, dl.dd_sum(ty, axis=0))
+                dy = dl.dd_sum_prod(ty, None, 0, dy, sub=True)
             dy = dl.s_solve_cholesky(cholQ, dy)
             dx = []
             for j, cl in enumerate(ds.clusters):
@@ -1374,8 +1399,8 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                                         _bmm(dX[j][ki], Y[j][ki]))))
                     for ki in range(len(cl.classes))])
                 if cl.s_nb:
-                    dYs.append(dd_mul(Xinv_s[j], dd_sub(
-                        Rcur_s[j], dd_mul(dXs[j], Ys[j]))))
+                    dYs.append(dd_mul(Xinv_s[j], dd_fms(
+                        Rcur_s[j], dXs[j], Ys[j])))
                 else:
                     dYs.append(dl.dd_zeros((cl.J, 0), nw, dev, dt))
             return dx, dy, dX, dY, dXs, dYs
@@ -1514,6 +1539,20 @@ def _tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _expansion_pairs(tree, other):
+    """(expansion of ``tree``, the same leaf of ``other``) for every
+    expansion (word tuple) of a state tree, leaves matched by key and
+    position as :func:`_tree_map` matches them."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _expansion_pairs(v, other[k])
+    elif len(tree) and isinstance(tree[0], torch.Tensor):
+        yield tuple(tree), tuple(other)
+    else:
+        for v, o in zip(tree, other, strict=True):
+            yield from _expansion_pairs(v, o)
+
+
 def _assign(buf, v):
     """Copy ``v`` (a tensor or a host number) into the tensor ``buf``."""
     if v is buf:
@@ -1613,8 +1652,6 @@ def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
         alpha_ok = torch.minimum(info["alpha_d"], info["alpha_p"]) \
             >= step_length_threshold
         commit = okstep & alpha_ok & ~done
-        state2 = _tree_map(lambda a, b: torch.where(commit, a, b),
-                           new_state, state)
         info2 = {k: torch.where(commit, info[k], info_prev[k])
                  for k in info_prev}
         pd_feas2 = torch.where(commit, info["pd_feas"], pd_feas)
@@ -1635,7 +1672,8 @@ def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
             ~alpha_ok, 4, torch.where(mu_exceeded, 3, 0))).to(torch.int32)
         code2 = torch.where((code != 0) | done, code, ladder)
         done2 = done | ~commit | term | mu_exceeded
-        _tree_map(_assign, state, state2)
+        # every word of every state leaf picked on the device, in place
+        dd_commit(commit, _expansion_pairs(new_state, state))
         _tree_map(_assign, info_prev, info2)
         for buf, v in ((pd_feas, pd_feas2), (it, it2), (code, code2),
                        (done, done2)):

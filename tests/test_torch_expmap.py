@@ -33,7 +33,9 @@ from clrs_tpu_torch.dd import kernels as K
 from clrs_tpu_torch.dd import linalg as TL
 from clrs_tpu_torch.dd import ops as O
 from clrs_tpu_torch.solver import step as TS
-from torch_helpers import delsarte, state_words, xla_subnormals  # noqa: F401
+from torch_helpers import (delsarte, emulate_tree_launch,  # noqa: F401
+                           index_offsets, raw_memory, state_words,
+                           unfused_forms, xla_subnormals)
 
 NWS = (5, 8)
 # (x shape, y shape, transposed): the classes of a delsarte(3,10) iteration
@@ -155,22 +157,6 @@ def test_tree_sum_bit_identical(nw, shape, axis, monkeypatch, xla_subnormals):
 # the CUDA route's launch arguments, emulated on CPU tensors
 # ---------------------------------------------------------------------------
 
-def _memory(ptr, offsets):
-    """float32 array over the memory a kernel reads at ``ptr`` + offsets
-    (elements)."""
-    size = int(np.max(offsets)) + 1 if np.size(offsets) else 1
-    return np.ctypeslib.as_array((ctypes.c_float * size).from_address(ptr))
-
-
-def _offsets(dims, st, extra=0):
-    """Element offsets of every index of ``dims`` (row-major, last dim
-    fastest: the kernels' unravel order) under strides ``st``."""
-    if not dims:
-        return np.full((1,), extra, np.int64)
-    ix = np.indices(dims).reshape(len(dims), -1)
-    return np.asarray(st, np.int64) @ ix + extra
-
-
 def _unpack_dims(dims, nd):
     return tuple(dims[:nd])
 
@@ -184,8 +170,9 @@ def _gather(ptrs, strides, slot0, nw, dims):
     out = []
     for k in range(nw):
         st = _unpack_strides(strides, slot0 + k, len(dims))
-        off = _offsets(dims, st)
-        out.append(torch.from_numpy(_memory(ptrs[slot0 + k], off)[off].copy()))
+        off = index_offsets(dims, st)
+        out.append(torch.from_numpy(raw_memory(ptrs[slot0 + k], off)[off]
+                                    .copy()))
     return tuple(out)
 
 
@@ -229,88 +216,45 @@ def test_expmap_refuses_shapes_beyond_six_dims():
         K.ew_pack([x, y])
 
 
-def _emulate_tree(launch, nw, rng):
-    """Run one tree_sum<NW> launch on CPU memory as the kernel does."""
-    (ptrs, strides, axs, shared, dims, nd, dst, ws, cs, es,
-     M, m, C, level) = launch
-    cols = _unpack_dims(dims, nd)
-    col_st = [_unpack_strides(strides, k, nd) for k in range(nw)]
-    dmem = _memory(dst.data_ptr(), np.array([dst.numel() - 1]))
-
-    def read(e):
-        """[nw] words of entry e (array of entries) of every column."""
-        out = []
-        for k in range(nw):
-            off = (_offsets(cols, col_st[k])[:, None]
-                   + np.asarray(e, np.int64)[None, :] * axs[k])
-            out.append(torch.from_numpy(_memory(ptrs[k], off)[off].copy()))
-        return tuple(out)
-
-    def write(e, words):
-        for k, w in enumerate(words):
-            off = (k * ws + np.arange(M)[:, None] * cs
-                   + np.asarray(e, np.int64)[None, :] * es)
-            dmem[off] = w.numpy()
-
-    if level == 0:
-        assert -(-M // C) * C >= M
-        if m == 0:
-            write([0], tuple(torch.zeros((M, 1)) for _ in range(nw)))
-            return
-        e = list(read(np.arange(m)))
-        n = m
-        while n > 1:
-            h, half = n // 2, (n + 1) // 2
-            s = O.exp_add(tuple(c[:, :h] for c in e),
-                          tuple(c[:, half:half + h] for c in e))
-            for c, sc in zip(e, s):
-                c[:, :h] = sc
-            n = half
-        write([0], tuple(c[:, :1] for c in e))
-        return
-    h, half = m // 2, (m + 1) // 2
-    items = rng.permutation(half)            # threads in no order
-    for chunk in np.array_split(items, max(1, half // 8)):
-        adds = chunk[chunk < h]
-        if adds.size:
-            write(adds, O.exp_add(read(adds), read(adds + half)))
-        carried = chunk[chunk >= h]
-        if carried.size:
-            write(carried, read(carried))
-
-
 @pytest.mark.parametrize("route", ["shared", "levels"])
 def test_tree_sum_plan_reproduces_pairing(route):
     """Every n in 0..300 over 3 columns (a strided, transposed input): the
     launches that tree_sum builds, emulated, equal dd_sum's tree bit for
     bit. "levels" forces the level route with a shared-memory budget below
-    one column."""
+    one column's level-1 entries and no cluster."""
     nw = 5
     rng = np.random.default_rng(5)
     for n in range(301):
         x = tuple(torch.from_numpy(w).transpose(0, 1)
                   for w in _words(rng, (3, n), nw))      # [n, 3], strided
-        smem = K.TREE_SMEM if route == "shared" else 4 * nw * n - 1
-        plan = K.tree_sum_plan(n, nw, 3, smem)
-        assert plan[0] == (route if n > 1 else "shared")
-        out, launches = K.tree_sum_launches(x, 0, smem)
-        if plan[0] == "levels":
-            assert [ln[11] for ln in launches] == list(plan[1])
-            assert launches[-1][6].data_ptr() == out[0].data_ptr()
+        if route == "shared":
+            smem, cluster = K.TREE_SMEM, K.TREE_CLUSTER
         else:
-            assert len(launches) == 1 and launches[0][12] == plan[1]
+            smem, cluster = 4 * nw * ((n + 1) // 2) - 1, 1
+        plan = K.tree_sum_plan(n, nw, 3, smem, cluster)
+        assert plan[0] == (route if n > 1 else "shared")
+        out, launches = K.tree_sum_launches(x, 0, smem=smem, cluster=cluster)
+        if plan[0] == "levels":
+            assert [ln.n for ln in launches] == list(plan[1])
+            assert launches[-1].dst.data_ptr() == out[0].data_ptr()
+        else:
+            assert len(launches) == 1 and launches[0].C == plan[1]
         for ln in launches:
-            _emulate_tree(ln, nw, rng)
+            emulate_tree_launch(ln, nw, rng)
         _same(K.pairwise_sum(x, 0, O.exp_add), out)
 
 
 def test_tree_sum_plan_columns_fill_a_block():
     assert K.tree_sum_plan(2, 5, 36864) == ("shared", K.TREE_THREADS)
-    assert K.tree_sum_plan(22, 5, 1000) == ("shared", 24)
+    assert K.tree_sum_plan(22, 5, 1000) == ("shared", 23)  # 11 entries each
     assert K.tree_sum_plan(242, 8, 1) == ("shared", 1)
     assert K.tree_sum_plan(0, 5, 7) == ("shared", 7)
-    route, levels = K.tree_sum_plan(12000, 5, 1)
-    assert route == "levels" and levels[0] == 12000 and levels[-1] == 2
+    # first level on load: 12000 entries keep 6000 (120 KB), spread over
+    # a cluster of ceil(6000 / TREE_SPREAD) blocks; the level route only
+    # past a full cluster's shared memory
+    assert K.tree_sum_plan(12000, 5, 1) == ("cluster", 6)
+    route, levels = K.tree_sum_plan(400000, 5, 1)
+    assert route == "levels" and levels[0] == 400000 and levels[-1] == 2
     for n in range(1, 400):
         route, C = K.tree_sum_plan(n, 8, 10 ** 6)
         assert 4 * 8 * n * C <= K.TREE_SMEM
@@ -322,9 +266,10 @@ def test_tree_sum_plan_columns_fill_a_block():
 
 def test_step_routes_expansion_ops_through_wrappers(monkeypatch):
     """A delsarte(3,3) eager step on the CPU calls every f32 expansion op
-    through a wrapper (plain counters > 0), and its state is bit for bit
-    the state of the same step with the wrappers' plain ops called
-    directly (the arithmetic before the wrappers)."""
+    through a wrapper (plain counters > 0; every tree sum of a one-process
+    step is a fused one), and its state is bit for bit the state of the
+    same step with the wrappers' plain ops called directly (the arithmetic
+    before the wrappers; the fused forms as their compositions)."""
     sdp = ct.ClusteredLowRankSDP(delsarte(ct, 3))
     ds = TS.DeviceSDP(sdp, nw=5, device="cpu")
     kw = dict(gamma=0.9, beta_feasible=0.1, beta_infeasible=0.3,
@@ -334,7 +279,7 @@ def test_step_routes_expansion_ops_through_wrappers(monkeypatch):
     s1, info1 = step(TS.initial_state(ds, 100.0, 100.0), False)
     c = K.counts()
     names = ("ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
-             "ew_symmetrize", "tree_sum")
+             "ew_symmetrize", "tree_sum_fused")
     for name in names:
         assert c[name + "_plain"] > 0, name
         assert c[name] == 0, name
@@ -348,6 +293,9 @@ def test_step_routes_expansion_ops_through_wrappers(monkeypatch):
         0.5 * c for c in O.exp_add(x, TL.dd_transpose(x))))
     monkeypatch.setattr(K, "tree_sum",
                         lambda x, a: K.pairwise_sum(x, a, O.exp_add))
+    # the fused forms as the compositions of the same plain ops
+    for name, fn in unfused_forms().items():
+        monkeypatch.setattr(K, name, fn)
     K.reset_counts()
     s2, info2 = TS.make_step_body(ds, **kw)(
         TS.initial_state(ds, 100.0, 100.0), False)

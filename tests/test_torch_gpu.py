@@ -872,8 +872,9 @@ def test_expmap_matches_plain_on_card(nw, xs, ys, cuda):
 @pytest.mark.parametrize("shape, axis", [
     ((1, 2, 22), 1), ((2, 22, 11), 2), ((242,), 0), ((2, 22, 22, 1), 3),
     ((1, 1, 1), 0), ((0, 4), 0), ((3, 0), 0), ((13, 4), 0), ((2, 5, 7, 3), -2),
-    ((12001, 2), 0),      # a column past shared memory: one launch a level
-    ((9000, 3), 0)])      # past it at nw 8 only
+    ((12001, 2), 0),      # a long column: a cluster of blocks
+    ((9000, 3), 0),
+    ((400001, 1), 0)])    # past a full cluster: one launch a level
 @pytest.mark.parametrize("nw", [5, 8])
 def test_tree_sum_matches_plain_on_card(nw, shape, axis, cuda):
     x = _exp_words(np.random.default_rng(nw + len(shape)), shape, nw, cuda)
@@ -884,8 +885,95 @@ def test_tree_sum_matches_plain_on_card(nw, shape, axis, cuda):
     assert _bits(got, K.tree_sum_plain(x, axis))
     route, plan = K.tree_sum_plan(shape[axis], nw, 1)
     want = (0 if got[0].numel() == 0 else
-            len(plan) if route == "levels" else 1)
+            len(plan) if route == "levels" else 1)     # block, cluster: one
     assert K.counts()["tree_sum"] == want
+
+
+FUSE_SHAPES = [((), (), (), None), ((1, 21), (), (1, 21), (1, 21)),
+               ((2, 22, 1), (2, 22, 11), (2, 22, 11), (2, 22, 11)),
+               ((2, 11, 11), "T", "T", (2, 11, 11)), ((2, 0, 5), (1, 5),
+                                                     (2, 0, 5), None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes", FUSE_SHAPES)
+@pytest.mark.parametrize("nw", [5, 8])
+def test_expfuse_matches_plain_on_card(nw, shapes, cuda):
+    """Each fused form (a scale on the last operand of sub2, a {0,1} mask)
+    equals its plain version bit for bit, one launch each; an empty output
+    launches nothing."""
+    rng = np.random.default_rng(nw + 3)
+    *sh, ms = shapes
+    ops = []
+    for s in sh + [sh[-1]]:
+        if s == "T":
+            ops.append(tuple(c.transpose(1, 2)
+                             for c in _exp_words(rng, (2, 11, 11), nw, cuda)))
+        else:
+            ops.append(_exp_words(rng, s, nw, cuda))
+    mask = None if ms is None else torch.from_numpy(
+        rng.integers(0, 2, ms).astype(np.float32)).to(cuda)
+    K.reset_counts()
+    for name, n in (("fma", 3), ("fms", 3), ("msub", 3), ("mms", 4)):
+        got = getattr(K, f"ew_{name}")(*ops[:n], mask=mask)
+        assert _bits(got, getattr(K, f"ew_{name}_plain")(*ops[:n], mask))
+    for scale in (-1.0, None):
+        got = K.ew_sub2(*ops[:3], scale, mask)
+        assert _bits(got, K.ew_sub2_plain(*ops[:3], scale, mask))
+    torch.cuda.synchronize()
+    c = K.counts()
+    launched = 0 if got[0].numel() == 0 else 1
+    for name in ("fma", "fms", "msub", "mms"):
+        assert c[f"ew_{name}"] == launched
+    assert c["ew_sub2"] == 2 * launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 96, 243, 18432, 32768])
+@pytest.mark.parametrize("nw", [5, 8])
+def test_tree_sum_fused_matches_plain_on_card(nw, n, cuda):
+    """acc +- sum(x s y) over a column of n entries (3 columns of a
+    transposed view; one column of a long one: a cluster) equals the
+    plain composition bit for bit in one launch, both epilogues, the
+    scale on x and on the product."""
+    rng = np.random.default_rng(n + nw)
+    cols = 1 if n > 1000 else 3
+    x = tuple(c.t() for c in _exp_words(rng, (cols, n), nw, cuda))
+    y = _exp_words(rng, (n, 1), nw, cuda)
+    acc = _exp_words(rng, (cols,), nw, cuda)
+    sc = torch.from_numpy(rng.integers(0, 2, (n, cols)).astype(
+        np.float32)).to(cuda)
+    for sub, scale_on in ((False, None), (True, "x"), (False, "product")):
+        scale = None if scale_on is None else sc
+        K.reset_counts()
+        got = K.tree_sum_fused(x, y, 0, acc, sub, scale, scale_on)
+        assert _bits(got, K.tree_sum_fused_plain(x, y, 0, acc, sub, scale,
+                                                 scale_on))
+        assert K.counts()["tree_sum_fused"] == 1
+    got = K.tree_sum_fused(x, y, None)                 # a dot over all
+    assert _bits(got, K.tree_sum_fused_plain(x, y, None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flag", [True, False])
+def test_select_matches_plain_on_card(flag, cuda):
+    """ew_select picks every word of 27 non-empty pairs among 36 (two
+    launches) on a device bool, in place, as torch.where and the copy
+    do."""
+    rng = np.random.default_rng(4)
+    shapes = [(2, 3), (0, 4), (7,), (1, 21, 22)] * 9
+    pairs = [(_exp_words(rng, s, 5, cuda), _exp_words(rng, s, 5, cuda))
+             for s in shapes]
+    cond = torch.tensor(flag, device=cuda)
+    dk = [tuple(c.clone() for c in d) for _, d in pairs]
+    dp = [tuple(c.clone() for c in d) for _, d in pairs]
+    K.reset_counts()
+    K.ew_select(cond, [(s, d) for (s, _), d in zip(pairs, dk)])
+    K.ew_select_plain(cond, [(s, d) for (s, _), d in zip(pairs, dp)])
+    torch.cuda.synchronize()
+    assert K.counts()["ew_select"] == 2
+    for a, b in zip(dk, dp):
+        assert _bits(a, b)
 
 
 @pytest.mark.gpu
@@ -900,6 +988,7 @@ def test_step_runs_expansion_ops_as_kernels_on_card(cuda):
     torch.cuda.synchronize()
     c = K.counts()
     for name in ("ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
-                 "ew_symmetrize", "tree_sum"):
+                 "ew_symmetrize", "tree_sum_fused", "ew_fma", "ew_fms",
+                 "ew_msub", "ew_mms", "ew_sub2"):
         assert c[name] > 0, name
     assert all(v == 0 for k, v in c.items() if k.endswith("_plain"))

@@ -371,3 +371,240 @@ def dist_linalg(S, L, B, nb):
 def save_on_rank_1(*args):
     """A SaveSettings callback that only rank 1 answers yes to."""
     return torch.distributed.get_rank() == 1
+
+
+# ---------------------------------------------------------------------------
+# the expansion kernels' launch arguments, emulated on CPU memory as the
+# CUDA kernels read and write it (csrc/exptree.cu, csrc/expfuse.cu)
+# ---------------------------------------------------------------------------
+
+def raw_memory(ptr, offsets):
+    """float32 array over the memory a kernel reads at ``ptr`` + offsets
+    (elements)."""
+    import ctypes
+
+    size = int(np.max(offsets)) + 1 if np.size(offsets) else 1
+    return np.ctypeslib.as_array((ctypes.c_float * size).from_address(ptr))
+
+
+def index_offsets(dims, st):
+    """Element offsets of every index of ``dims`` (row-major, last dim
+    fastest: the kernels' unravel order) under strides ``st``."""
+    if not dims:
+        return np.zeros((1,), np.int64)
+    ix = np.indices(dims).reshape(len(dims), -1)
+    return np.asarray(st, np.int64) @ ix
+
+
+def _slot_strides(strides, slot, nd, maxd=6):
+    base = (slot + 1) * maxd - nd
+    return tuple(strides[base:base + nd])
+
+
+def _read(ptr, off):
+    return torch.from_numpy(raw_memory(ptr, off)[off].copy())
+
+
+def emulate_tree_launch(ln, nw, rng):
+    """Run one clrs_tree_sum launch (a kernels.TreeLaunch) on CPU memory as
+    csrc/exptree.cu does: entries read through the views (the product and
+    the scale on load), level 1 on load, the block, cluster or level
+    route's levels with each level's adds in a shuffled order (and, on the
+    cluster route, block by block in a shuffled block order), the epilogue,
+    the stores through dst's strides."""
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.dd import ops as O
+
+    nd, ne, M, n = ln.nd, ln.ne, ln.M, ln.n
+    dims = tuple(ln.dims[:nd])
+    cd, ed = dims[:nd - ne], dims[nd - ne:]
+    assert int(np.prod(cd)) == M
+    assert (int(np.prod(ed)) == n) if ne else n <= 1
+    MW = K._MAX_NW
+
+    def offs(st):
+        co = index_offsets(cd, st[:nd - ne])
+        eo = index_offsets(ed, st[nd - ne:]) if ne else np.zeros(1, np.int64)
+        return co, eo
+
+    def group(j, e):
+        out = []
+        for k in range(nw):
+            co, eo = offs(_slot_strides(ln.strides, j * MW + k, nd))
+            out.append(_read(ln.ptrs[j * MW + k],
+                             co[:, None] + eo[np.asarray(e, np.int64)][None]))
+        return tuple(out)
+
+    def scale(e):
+        if ln.scale is None:
+            return ln.scale_c
+        co, eo = offs(tuple(ln.scale_st[6 - nd:]))
+        return _read(ln.scale.data_ptr(),
+                     co[:, None] + eo[np.asarray(e, np.int64)][None])
+
+    def P(e):
+        x = group(0, e)
+        if ln.scale_on == 1:
+            x = tuple(c * scale(e) for c in x)
+        if ln.pro == 0:
+            return x
+        p = O.exp_mul(x, group(1, e))
+        if ln.scale_on == 2:
+            p = tuple(c * scale(e) for c in p)
+        return p
+
+    def level1(idx):
+        """Level-1 entries idx, in idx's order."""
+        idx = np.asarray(idx, np.int64)
+        is_pair = idx < n // 2
+        pair, mid = idx[is_pair], idx[~is_pair]
+        out = [torch.zeros((M, len(idx))) for _ in range(nw)]
+        if pair.size:
+            s = O.exp_add(P(pair), P(pair + (n + 1) // 2))
+            for o, c in zip(out, s):
+                o[:, torch.from_numpy(is_pair)] = c
+        if mid.size:
+            for o, c in zip(out, P(mid)):
+                o[:, torch.from_numpy(~is_pair)] = c
+        return out
+
+    def finish(r, e=0):
+        if ln.epi:
+            acc = group(2, [0])
+            r = (O.exp_add if ln.epi == 1 else O.exp_sub)(
+                acc, tuple(c.reshape(M, 1) for c in r))
+        dmem = raw_memory(ln.dst.data_ptr(), np.array([ln.dst.numel() - 1]))
+        for k, w in enumerate(r):
+            off = k * ln.ws + np.arange(M) * ln.cs + e * ln.es
+            dmem[off] = w.reshape(M).numpy()
+
+    def levels(E, m, stop, blocks=None):
+        while m > stop:
+            h, half = m // 2, (m + 1) // 2
+            order = rng.permutation(h)
+            if blocks is not None:       # block by block, in no order
+                S = blocks
+                order = np.concatenate([
+                    rng.permutation(np.arange(b * S, min(b * S + S, h)))
+                    for b in rng.permutation(-(-h // S))])
+            for chunk in np.array_split(order, max(1, h // 7)):
+                if chunk.size:
+                    s = O.exp_add(tuple(c[:, chunk] for c in E),
+                                  tuple(c[:, chunk + half] for c in E))
+                    for c, sc in zip(E, s):
+                        c[:, chunk] = sc
+            m = half
+        return m
+
+    h1 = (n + 1) // 2
+    if ln.level == 0:
+        if ln.G == 1:
+            assert ln.C >= 1 and ln.S == 0
+        else:
+            assert ln.C == 1 and ln.S == -(-h1 // ln.G) and ln.S > 0
+        if h1 == 0:
+            finish(tuple(torch.zeros(M) for _ in range(nw)))
+            return
+        E = level1(np.arange(h1))
+        m = h1
+        if ln.G > 1:
+            m = levels(E, m, ln.S, blocks=ln.S)
+        levels(E, m, 1)
+        finish(tuple(c[:, 0] for c in E))
+        return
+    assert n >= 2
+    dmem = raw_memory(ln.dst.data_ptr(), np.array([ln.dst.numel() - 1]))
+    for chunk in np.array_split(rng.permutation(h1), max(1, h1 // 8)):
+        if not chunk.size:
+            continue
+        v = level1(chunk)
+        if n == 2:
+            finish(tuple(c[:, 0] for c in v))
+            continue
+        for k, w in enumerate(v):
+            off = (k * ln.ws + np.arange(M)[:, None] * ln.cs
+                   + chunk[None, :] * ln.es)
+            dmem[off] = w.numpy()
+
+
+def emulate_fuse_launch(pack, form, nops, nw, scale=None, sc_op=-1,
+                        mask=None):
+    """Run one clrs_expfuse launch on CPU memory from ew_fuse_pack's
+    arguments: every operand, the scale and the mask gathered through
+    their pointers and strides, the form's plain op sequence, the words
+    stored through the output's pointers and strides."""
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.dd import ops as O
+
+    (shape, numel, words, ptrs, strides, shared, sc_st, mk_st, outp, out_st,
+     dims, nd) = pack
+    d = tuple(dims[:nd])
+    assert int(np.prod(d)) == numel
+    MW = K._MAX_NW
+    a = []
+    for j in range(nops):
+        a.append(tuple(_read(ptrs[j * MW + k], index_offsets(
+            d, _slot_strides(strides, j * MW + k, nd))) for k in range(nw)))
+    if sc_op >= 0:
+        s = (_read(scale.data_ptr(), index_offsets(d, tuple(sc_st[6 - nd:])))
+             if isinstance(scale, torch.Tensor) else scale)
+        a[sc_op] = tuple(c * s for c in a[sc_op])
+    r = {"fma": lambda: O.exp_add(a[0], O.exp_mul(a[1], a[2])),
+         "fms": lambda: O.exp_sub(a[0], O.exp_mul(a[1], a[2])),
+         "msub": lambda: O.exp_sub(O.exp_mul(a[0], a[1]), a[2]),
+         "mms": lambda: O.exp_sub(O.exp_mul(a[0], a[1]),
+                                  O.exp_mul(a[2], a[3])),
+         "sub2": lambda: O.exp_sub(O.exp_sub(a[0], a[1]), a[2])}[form]()
+    if mask is not None:
+        m = _read(mask.data_ptr(), index_offsets(d, tuple(mk_st[6 - nd:])))
+        r = tuple(c * m for c in r)
+    off = index_offsets(d, tuple(out_st[6 - nd:]))
+    for k, w in enumerate(r):
+        raw_memory(outp[k], off)[off] = w.numpy()
+    return words
+
+
+def unfused_forms():
+    """{wrapper name: the same function as a composition of the port's
+    plain expansion ops (clrs_tpu_torch.dd.ops) and PyTorch word scales}:
+    the fused forms as the step computed them before they were fused."""
+    from clrs_tpu_torch.dd import kernels as K
+    from clrs_tpu_torch.dd import ops as O
+
+    def masked(r, m):
+        return r if m is None else tuple(c * m for c in r)
+
+    def tree(x, y, axis, acc=None, sub=False, scale=None, scale_on=None):
+        if scale_on == "x":
+            x = tuple(c * scale for c in x)
+        p = O.exp_mul(x, y) if y is not None else x
+        if scale_on == "product":
+            p = tuple(c * scale for c in p)
+        p, axis = K.flatten_sum_axes(p, axis)
+        s = K.pairwise_sum(p, axis, O.exp_add)
+        if acc is None:
+            return s
+        return O.exp_sub(acc, s) if sub else O.exp_add(acc, s)
+
+    def select(cond, pairs):
+        pairs = list(pairs)
+        for src, dst in pairs:
+            for d, c in zip(dst, src):
+                d.copy_(torch.where(cond, c, d))
+        return [dst for _, dst in pairs]
+
+    return {
+        "ew_fma": lambda a, b, c, mask=None: masked(
+            O.exp_add(a, O.exp_mul(b, c)), mask),
+        "ew_fms": lambda a, b, c, mask=None: masked(
+            O.exp_sub(a, O.exp_mul(b, c)), mask),
+        "ew_msub": lambda a, b, c, mask=None: masked(
+            O.exp_sub(O.exp_mul(a, b), c), mask),
+        "ew_mms": lambda a, b, c, d, mask=None: masked(
+            O.exp_sub(O.exp_mul(a, b), O.exp_mul(c, d)), mask),
+        "ew_sub2": lambda a, b, c, c_scale=None, mask=None: masked(
+            O.exp_sub(O.exp_sub(a, b), c if c_scale is None
+                      else tuple(w * c_scale for w in c)), mask),
+        "tree_sum_fused": tree,
+        "ew_select": select,
+    }

@@ -15,8 +15,14 @@ nw, L, n), chain one of add, axpy, residual, residual_corr); the expansion
 ops through ``clrs_tpu_torch.dd.arith`` and ``clrs_tpu_torch.dd.linalg``
 (every f32 caller; ``--kernel expmap`` records (op, nw, x shape, y shape),
 op one of add, sub, mul, div, neg, symmetrize, y None for the one-operand
-ops) and the tree sums through ``clrs_tpu_torch.dd.linalg`` (``--kernel
-tree_sum`` records (nw, shape, axis)). Then it times
+ops), the tree sums through ``clrs_tpu_torch.dd.linalg`` (``--kernel
+tree_sum`` records (nw, shape, axis)), the fused forms through
+``clrs_tpu_torch.dd.arith`` (``--kernel expfuse`` records (form, nw,
+operand shapes, scale: None, a constant or its shape, mask shape)), the
+fused tree sums through ``clrs_tpu_torch.dd.linalg`` (``--kernel
+tree_fused`` records (nw, x, y, axis, acc, sub, scale_on, scale shape)) and
+the commit's select (``--kernel select`` records (nw, leaf shapes)). Then
+it times
 the kernel at every recorded shape on random inputs of that shape with
 chip_smoke.py's ``time_ms`` (CUDA events around calls queued behind a spin
 kernel): a solve on an SPD matrix's factor from the Cholesky kernel and
@@ -27,11 +33,13 @@ limbs (from the plain extraction), the cascade on int32 C (form ``c``) or
 diagonal sums (form ``diags``) drawn from +-2^24, the chains on standard
 normal [L, n, n] words with mu and alpha as [L, 1, 1] broadcast scalars,
 the expansion ops and tree sums on contiguous words of the recorded shapes
-(word 0 over 16 decades, word k about 2^-24k of it).
+(word 0 over 16 decades, word k about 2^-24k of it), with {0,1} masks and
+scales, the select with a true cond (every word moves).
 ``--kernel`` takes a comma list (one solve records them all); ``--shape
 kernel:a,b,...`` times a shape of that kernel besides (``--d 0``: no
 solve, only those; an extraction's L may be left out, the L of an nw-word
-product). Prints one JSON line per kernel: per shape the calls
+product; a key of expfuse, tree_fused or select is a Python tuple, e.g.
+``tree_fused:(5,(18432,),(18432,),None,(),False,None,None)``). Prints one JSON line per kernel: per shape the calls
 per iteration, ms per call, ms per iteration and the bound of
 chip_smoke.py's ``cost_*`` (the least time the card could take), and the
 sums (per form for the solve, per chain for the chains). The package and
@@ -46,6 +54,7 @@ another checkout times that checkout's kernels. On a machine with a card:
     python3 torch_kernel_timing.py --kernel limb_extract --d 0 --shape limb_extract:5,4,192,64,a,limb
     python3 torch_kernel_timing.py --kernel cascade --d 0 --shape cascade:5,4,22,22,diags
     python3 torch_kernel_timing.py --kernel expmap,tree_sum --d 95 --iters 1
+    python3 torch_kernel_timing.py --kernel expfuse,tree_fused,select --d 95 --iters 1
 """
 
 from __future__ import annotations
@@ -71,7 +80,11 @@ RECORDED = {"tri": ((("dd.linalg", "K"),), ("tri_solve_batched",)),
             "expmap": ((("dd.arith", "K"), ("dd.linalg", "K")),
                        ("ew_add", "ew_sub", "ew_mul", "ew_div", "ew_neg",
                         "ew_symmetrize")),
-            "tree_sum": ((("dd.linalg", "K"),), ("tree_sum",))}
+            "tree_sum": ((("dd.linalg", "K"),), ("tree_sum",)),
+            "expfuse": ((("dd.arith", "K"),),
+                        ("ew_fma", "ew_fms", "ew_msub", "ew_mms", "ew_sub2")),
+            "tree_fused": ((("dd.linalg", "K"),), ("tree_sum_fused",)),
+            "select": ((("dd.arith", "K"),), ("ew_select",))}
 FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
           "int8_gemm": ("B", "M", "K", "N"),
           "limb_gemm": ("nw", "B", "m", "k", "n"),
@@ -79,7 +92,11 @@ FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
           "cascade": ("nw", "B", "m", "n", "form"),
           "plmap": ("chain", "nw", "L", "n"),
           "expmap": ("op", "nw", "x", "y"),
-          "tree_sum": ("nw", "shape", "axis")}
+          "tree_sum": ("nw", "shape", "axis"),
+          "expfuse": ("form", "nw", "shapes", "scale", "mask"),
+          "tree_fused": ("nw", "x", "y", "axis", "acc", "sub", "scale_on",
+                         "scale"),
+          "select": ("nw", "shapes")}
 
 
 def _shape(kernel, wrapper, args, kw):
@@ -118,6 +135,33 @@ def _shape(kernel, wrapper, args, kw):
         x, axis = args
         shape = tuple(x[0].shape)
         return (len(x), shape, axis % len(shape))
+    if kernel == "expfuse":
+        form = wrapper.split("_", 1)[1]
+        n = 4 if form == "mms" else 3
+        rest = list(args[n:]) + [None, None]
+        if form == "sub2":
+            sc = kw.get("c_scale", rest[0])
+            mask = kw.get("mask", rest[1])
+        else:
+            sc, mask = None, kw.get("mask", rest[0])
+        scale = (None if sc is None else tuple(sc.shape)
+                 if hasattr(sc, "shape") else float(sc))
+        return (form, len(args[0]), tuple(tuple(op[0].shape)
+                                          for op in args[:n]),
+                scale, None if mask is None else tuple(mask.shape))
+    if kernel == "tree_fused":
+        x, y, axis, acc, sub, scale, scale_on = (
+            list(args) + [None, False, None, None])[:7]
+
+        def sh(w):
+            return None if w is None else tuple(w[0].shape)
+
+        return (len(x), sh(x), sh(y), axis, sh(acc), bool(sub), scale_on,
+                None if scale is None else tuple(scale.shape))
+    if kernel == "select":
+        cond, pairs = args
+        return (len(pairs[0][0]), tuple(tuple(src[0].shape)
+                                        for src, _ in pairs))
     a, b = args
     return tuple(a.shape) + (b.shape[2],)
 
@@ -161,6 +205,49 @@ def _expmap_args(key, rng, S):
     op, nw, xs, ys = key
     x = S._exp_words(rng, xs, nw)
     return (x,) if ys is None else (x, S._exp_words(rng, ys, nw))
+
+
+def _mask01(rng, shape):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.asarray(rng.integers(0, 2, shape),
+                                       np.float32)).to("cuda")
+
+
+def _expfuse_args(key, rng, S):
+    """Contiguous words of the recorded shapes, the scale (the recorded
+    constant, or a {0,1} word of its shape) and a {0,1} mask."""
+    form, nw, shapes, scale, mask = key
+    ops = [S._exp_words(rng, sh, nw) for sh in shapes]
+    sc = (None if scale is None else _mask01(rng, scale)
+          if isinstance(scale, tuple) else scale)
+    mk = None if mask is None else _mask01(rng, mask)
+    return tuple(ops) + ((sc,) if form == "sub2" else ()) + (mk,)
+
+
+def _tree_fused_args(key, rng, S):
+    nw, xs, ys, axis, accs, sub, scale_on, scs = key
+    return (S._exp_words(rng, xs, nw),
+            None if ys is None else S._exp_words(rng, ys, nw), axis,
+            None if accs is None else S._exp_words(rng, accs, nw), sub,
+            None if scs is None else _mask01(rng, scs), scale_on)
+
+
+def _select_fns(key, rng, S, K):
+    """ew_select and its plain version on one set of sources (cond true:
+    every word moves) into two copies of one set of destinations, so that
+    both can run on the same arguments and be compared."""
+    import torch
+
+    nw, shapes = key
+    src = [S._exp_words(rng, sh, nw) for sh in shapes]
+    dst = [S._exp_words(rng, sh, nw) for sh in shapes]
+    dk = [tuple(c.clone() for c in d) for d in dst]
+    cond = torch.ones((), dtype=torch.bool, device="cuda")
+    return (lambda c, s, a, b: K.ew_select(c, zip(s, a)),
+            lambda c, s, a, b: K.ew_select_plain(c, zip(s, b)),
+            (cond, src, dk, dst))
 
 
 def inputs(kernel, key, rng, S, K):
@@ -214,6 +301,15 @@ def inputs(kernel, key, rng, S, K):
         nw, shape, axis = key
         return ("tree_sum", K.tree_sum, K.tree_sum_plain,
                 (S._exp_words(rng, shape, nw), axis))
+    if kernel == "expfuse":
+        name = "ew_" + key[0]
+        return (name, getattr(K, name), getattr(K, name + "_plain"),
+                _expfuse_args(key, rng, S))
+    if kernel == "tree_fused":
+        return ("tree_sum_fused", K.tree_sum_fused, K.tree_sum_fused_plain,
+                _tree_fused_args(key, rng, S))
+    if kernel == "select":
+        return ("ew_select",) + _select_fns(key, rng, S, K)
     B, M, k, N = key
     a, b = (torch.from_numpy(rng.integers(-65, 66, s).astype(np.int8))
             .to("cuda") for s in ((B, M, k), (B, k, N)))
@@ -250,6 +346,12 @@ def _bound_ms(kernel, key, S, K):
         return S.bound(*S.cost_expmap(*key))[0]
     if kernel == "tree_sum":
         return S.bound(*S.cost_tree_sum(*key))[0]
+    if kernel == "expfuse":
+        return S.bound(*S.cost_expfuse(*key))[0]
+    if kernel == "tree_fused":
+        return S.bound(*S.cost_tree_fused(*key))[0]
+    if kernel == "select":
+        return S.bound(*S.cost_select(*key))[0]
     nw, B, d0, d1, side, _, L = key
     return S.bound(*S.cost_extract(nw, L, B, d0, d1, side))[0]
 
@@ -299,6 +401,10 @@ def _parse_key(kernel, text):
     def dims(v):
         return () if v == "-" else tuple(int(d) for d in v.split("x"))
 
+    if kernel in ("expfuse", "tree_fused", "select"):
+        import ast
+
+        return tuple(ast.literal_eval(text))
     vals = text.split(",")
     if kernel == "expmap":
         op, nw, xs, ys = vals
@@ -371,7 +477,8 @@ def main():
                              ms=ms, ms_per_iteration=per_it * ms,
                              bound_ms=_bound_ms(k, key, S, K)))
             form = (("transposed" if key[-1] else "forward") if k == "tri"
-                    else key[0] if k in ("plmap", "expmap") else "all")
+                    else key[0] if k in ("plmap", "expmap", "expfuse")
+                    else "all")
             sums[form] += per_it * ms
         print(json.dumps({
             "card": card, "checkout": str(Path(__file__).resolve().parent),

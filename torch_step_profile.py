@@ -18,9 +18,16 @@ graph or copy memory), peak device memory, the capture seconds, the
 port's kernel launches per iteration (clrs_tpu_torch.dd.kernels counters,
 the two forms of the triangular solve apart), the calls and device ms per
 iteration of each of the port's CUDA kernels (by template instance), the
-same summed over the step's expansion arithmetic (csrc/expmap.cu's
-expmap and tree_sum instances) and over PyTorch's own kernels, and the
-largest device times by kernel name. Run it from the root of a
+same summed over the step's expansion arithmetic (the expmap, tree_sum,
+expfuse and expselect instances of csrc/expmap.cu, exptree.cu and
+expfuse.cu) and over PyTorch's own kernels, and the largest device times
+by kernel name. With ``--sites`` it profiles one eager chunk iteration
+(the step and the commit, make_run_chunk without graphs) instead and
+prints the kernels that are not the port's by call site: every PyTorch op
+runs inside a ``torch.profiler.record_function`` named after the
+innermost line of clrs_tpu_torch that called it (and the line of
+solver/step.py above it), and each site's device kernels and ms are
+summed from the profiler's op tree. Run it from the root of a
 checkout (the package is imported from beside the script, so a copy of
 the script in another checkout profiles that checkout) on a machine with
 a card:
@@ -28,6 +35,7 @@ a card:
     python3 torch_step_profile.py --d 10 --iters 3 --mode graph
     python3 torch_step_profile.py --d 95 --iters 1 --mode eager
     python3 torch_step_profile.py --d 10 --iters 3 --substrate f64
+    python3 torch_step_profile.py --d 10 --sites
 
 Run one profile per process: torch.profiler loses device records in a
 process after a session with hundreds of thousands of them.
@@ -53,6 +61,9 @@ def main():
     ap.add_argument("--substrate", choices=("f32", "f64"), default="f32")
     ap.add_argument("--nw", type=int, default=None,
                     help="words (default 5 on f32, 2 on f64)")
+    ap.add_argument("--sites", action="store_true",
+                    help="the kernels that are not the port's, by call "
+                    "site, in one eager chunk iteration")
     args = ap.parse_args()
 
     import torch
@@ -72,6 +83,11 @@ def main():
     nw = args.nw or (2 if f64 else 5)
     ds = device_sdp(delsarte_problem(3, args.d, Fraction(1, 2)), nw=nw,
                     dtype=torch.float64 if f64 else torch.float32)
+    if args.sites:
+        print(json.dumps(dict(card=card, problem=f"delsarte(3,{args.d})",
+                              substrate=args.substrate, nw=nw,
+                              **sites(ds, args.top))), flush=True)
+        return
     stats, _, one = drive(ds, args.mode, N)
     K.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -106,7 +122,8 @@ def main():
             pc, pt = port.get(key, (0, 0.0))
             port[key] = (pc + c, pt + t)
     expansion = [sum(v[i] for k, v in port.items()
-                     if k.startswith(("expmap<", "tree_sum<")))
+                     if k.startswith(("expmap<", "tree_sum<", "expfuse<",
+                                      "expselect<")))
                  for i in (0, 1)]
     ported = [sum(v[i] for v in port.values()) for i in (0, 1)]
     torch_own = [len(dev) - ported[0],
@@ -135,6 +152,74 @@ def main():
         "top_device_ms_per_iteration": {
             nm[:90]: [c / N, t / N] for nm, (c, t) in top},
     }), flush=True)
+
+
+def _site():
+    """'file:line' of the innermost frame of clrs_tpu_torch calling, and
+    ' < solver/step.py:line' of the innermost step frame above it."""
+    f = sys._getframe(2)
+    inner = step = None
+    while f is not None:
+        name = f.f_code.co_filename
+        if "clrs_tpu_torch" in name:
+            rel = name.split("clrs_tpu_torch/", 1)[1]
+            if inner is None:
+                inner = f"{rel}:{f.f_lineno}"
+            if rel == "solver/step.py":
+                step = f"{rel}:{f.f_lineno}"
+                break
+        f = f.f_back
+    if inner is None:
+        return "outside clrs_tpu_torch"
+    return inner if step in (None, inner) else f"{inner} < {step}"
+
+
+def sites(ds, top):
+    """{kernels, ms: the kernels that are not the port's in one eager
+    chunk iteration; sites: the ``top`` call sites by device ms, each
+    [kernels, ms]}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from chip_smoke import STEP_KW
+    from clrs_tpu_torch.solver import step as TS
+    from clrs_tpu_torch.solver.ipm import _to_host
+
+    class BySite(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            with record_function("site " + _site()):
+                return func(*a, **(kw or {}))
+
+    TS._CAPTURE = False
+    state = TS.initial_state(ds, 100.0, 100.0)
+    info = TS.zero_info(_to_host(TS.make_assess(ds)(state)), ds.device)
+    run = TS.make_run_chunk(ds, duality_gap_threshold=1e-15, **STEP_KW)
+    carry = list(run(state, False, info, 1)[:3])     # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with BySite():
+            run(*carry, 1)
+        torch.cuda.synchronize()
+
+    def kernels(e):
+        n = len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
+        return n
+
+    by = {}
+    for e in prof.events():
+        if e.name.startswith("site ") and (
+                e.cpu_parent is None
+                or not e.cpu_parent.name.startswith("site ")):
+            n, t = by.get(e.name[5:], (0, 0.0))
+            by[e.name[5:]] = (n + kernels(e),
+                              t + e.device_time_total / 1e3)
+    total = [sum(v[0] for v in by.values()), sum(v[1] for v in by.values())]
+    ranked = sorted(by.items(), key=lambda kv: -kv[1][1])
+    return {"kernels_not_the_ports": total[0], "ms": total[1],
+            "sites": len(by),
+            "top_sites": {k: [n, t] for k, (n, t) in ranked[:top]}}
 
 
 if __name__ == "__main__":
