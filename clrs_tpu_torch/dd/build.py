@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("kernels.cu", "limb_gemm.cu", "int8_gemm.cu", "chol.cu", "expmap.cu",
-           "exptree.cu", "expfuse.cu")
+           "exptree.cu", "expfuse.cu", "eig.cu")
 HEADERS = ("expansion.cuh", "common.cuh", "limbs.cuh", "expview.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false",
@@ -85,10 +85,15 @@ def _declare(lib):
                                  i, vp]
     lib.clrs_expselect.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
                                    ctypes.POINTER(ll), i, i, vp]
+    lib.clrs_eig_scratch.argtypes = [i, i]
+    lib.clrs_eig_scratch.restype = ll
+    lib.clrs_eig_lowest.argtypes = [vp, vp, vp, i, i, vp]
+    lib.clrs_eig_pairs.argtypes = [vp, vp, vp, vp, i, i, vp]
     for fn in (lib.clrs_limb_extract, lib.clrs_limb_gemm, lib.clrs_chol,
                lib.clrs_tri_solve, lib.clrs_int8_gemm, lib.clrs_cascade,
                lib.clrs_plmap, lib.clrs_expmap, lib.clrs_tree_sum,
-               lib.clrs_expfuse, lib.clrs_expselect):
+               lib.clrs_expfuse, lib.clrs_expselect, lib.clrs_eig_lowest,
+               lib.clrs_eig_pairs):
         fn.restype = i
     return lib
 

@@ -24,11 +24,15 @@ so a run can show which route it took (:func:`reset_counts`,
 | tree_sum, tree_sum_fused | tree_sum<NW, PRO> (exptree.cu) | XLA-fused dd_sum (dd/linalg.py:110-127) and the products and adds around it |
 | ew_fma, ew_fms, ew_msub, ew_mms, ew_sub2 | expfuse<NW, FORM> (expfuse.cu) | XLA-fused chains of expops (solver/step.py:1621) |
 | ew_select          | expselect<NW> (expfuse.cu) | the commit's jnp.where (solver/step.py:1661-1666) |
+| eig_lowest         | eig_lowest (eig.cu)        | jnp.linalg.eigvalsh(A64) in the jitted step off the TPU (solver/step.py:1163) |
+| eig_pairs          | eig_pairs (eig.cu)         | jnp.linalg.eigh(A32), XLA's Jacobi, in the jitted TPU step (solver/step.py:1123) |
 
-The kernels are built for nw = 5..8, the f32 substrate's ladder; besides,
-limb_extract takes operands of 1..8 words to the limb count L its caller
-gives, and limb_gemm and cascade_from_c take nw = 2: the word counts of the
-certified step-length route (clrs_tpu/solver/step.py:1096-1143).
+The eigensolver kernels take float64 (eig_lowest) and float32 (eig_pairs)
+matrices, not words. The others are built for nw = 5..8, the f32
+substrate's ladder; besides, limb_extract takes operands of 1..8 words to
+the limb count L its caller gives, and limb_gemm and cascade_from_c take
+nw = 2: the word counts of the certified step-length route
+(clrs_tpu/solver/step.py:1096-1143).
 
 The two forms of tri_solve_batched are also counted apart
 (``tri_solve_batched.launches_by_form``, keyed by ``trans``, and in
@@ -57,6 +61,8 @@ import math
 import torch
 
 from . import ops as O
+from .f64ops import sqrt_rn
+from .slice_gemm import _pow2
 
 LIMB_BITS = 7
 KERNEL_NW = (5, 6, 7, 8)   # word counts the CUDA kernels are built for
@@ -640,13 +646,227 @@ def ew_select_plain(cond, pairs):
     return [dst for _, dst in pairs]
 
 
+# ---------------------------------------------------------------------------
+# the step-length eigensolver (csrc/eig.cu): plain versions, op for op
+# ---------------------------------------------------------------------------
+
+EIG_LO_THREADS = 512        # csrc/eig.cu LO_THREADS: the shifts of a round
+EIG_LO_MAX_ROUNDS = 10      # csrc/eig.cu LO_MAX_ROUNDS
+EIG_PAIRS_THREADS = 1024    # csrc/eig.cu PR_THREADS
+EIG_PAIRS_MAX_SWEEPS = 30   # csrc/eig.cu PR_MAX_SWEEPS
+_EPS64 = 2.0 ** -52
+_DBL_MIN = 2.0 ** -1022
+_PAIRS_TOL2 = 2.0 ** -48    # off(A)^2 <= 2^-48 ||A||_F^2 ends the sweeps
+
+
+def strided_sum(x, T):
+    """Sum over the last axis as T threads (a power of two) take it: thread
+    t adds the terms t, t + T, ... in order from +0, then the halving tree
+    of the partials, p[t] + p[t + T/2] for t < T/2 and so on down to one
+    (T = 32: one warp's lane sum; the kernels' block and lane trees)."""
+    m = x.shape[-1]
+    R = -(-m // T)
+    if R * T != m:
+        x = torch.nn.functional.pad(x, (0, R * T - m))
+    x = x.reshape(*x.shape[:-1], R, T)
+    acc = torch.zeros(x.shape[:-2] + (T,), dtype=x.dtype, device=x.device)
+    for r in range(R):
+        acc = acc + x[..., r, :]
+    while T > 1:
+        T //= 2
+        acc = acc[..., :T] + acc[..., T:2 * T]
+    return acc[..., 0]
+
+
+@_counted_plain
+def eig_lowest_plain(A):
+    """Lowest eigenvalue of each member of a float64 batch A [B, n, n]
+    (finite, symmetric): csrc/eig.cu's eig_lowest op for op. An exact
+    power-of-two scaling by max |a_ij|, Householder tridiagonalization
+    (dsytd2's, warp-sum order), then multisection of the Sturm counts
+    over EIG_LO_THREADS shifts a round; see the source's header."""
+    B, n = A.shape[0], A.shape[-1]
+    if n == 1 or B == 0:
+        return A[:, 0, 0].clone() if n else A.new_zeros((B,))
+    f64, dev = torch.float64, A.device
+    amax = A.abs().amax(dim=(1, 2))
+    zero = amax == 0
+    ex = torch.frexp(amax)[1].clamp(-1000, 1000)
+    S = A * _pow2(-ex)[:, None, None]
+    e = []
+    for k in range(n - 1):
+        m = n - 1 - k
+        x = S[:, k, k + 1:]
+        alpha = x[:, 0]
+        xt = x[:, 1:]
+        sigma = strided_sum(xt * xt, 32)
+        skip = sigma == 0
+        mu = sqrt_rn(alpha * alpha + sigma)
+        beta = torch.where(alpha >= 0, -mu, mu)
+        tau = (beta - alpha) / beta
+        den = alpha - beta
+        e.append(torch.where(skip, alpha, beta))
+        if bool(skip.all()):
+            continue
+        v = torch.cat([torch.ones_like(alpha)[:, None], xt / den[:, None]],
+                      dim=1)
+        S22 = S[:, k + 1:, k + 1:]
+        p = tau[:, None] * strided_sum(S22 * v[:, None, :], 32)
+        kk = (0.5 * tau) * strided_sum(p * v, 32)
+        w = p - kk[:, None] * v
+        upd = S22 - (v[:, :, None] * w[:, None, :] + w[:, :, None] * v[:, None, :])
+        S = S.clone()
+        S[:, k + 1:, k + 1:] = torch.where(skip[:, None, None], S22, upd)
+    d = torch.diagonal(S, dim1=1, dim2=2)
+    e = torch.stack(e, dim=1)
+    ea = e.abs()
+    z = torch.zeros((B, 1), dtype=f64, device=dev)
+    r = torch.cat([z, ea], dim=1) + torch.cat([ea, z], dim=1)
+    gl = (d - r).amin(dim=1)
+    gu = (d + r).amax(dim=1)
+    e2 = e * e
+    tnorm = torch.maximum(gl.abs(), gu.abs())
+    pivmin = _DBL_MIN * torch.clamp(e2.amax(dim=1), min=1.0)
+    wid = ((2.0 * _EPS64) * tnorm) * float(n)
+    lo = (gl - wid) - 2.0 * pivmin
+    hi = (gu + wid) + 2.0 * pivmin
+    tol = _EPS64 * tnorm
+    T = EIG_LO_THREADS
+    shifts = torch.arange(1, T + 1, dtype=f64, device=dev)
+    idx = torch.arange(T, device=dev)
+    active = ~zero
+    piv = pivmin[:, None]
+    for _ in range(EIG_LO_MAX_ROUNDS):
+        active = active & ~(hi - lo <= tol)
+        if not bool(active.any()):
+            break
+        # a tensor divisor: PyTorch multiplies a CUDA tensor by the
+        # reciprocal of a host scalar, two roundings
+        h = (hi - lo) / torch.full_like(hi, float(T + 1))
+        xs = lo[:, None] + shifts[None, :] * h[:, None]
+        q = d[:, :1] - xs
+        q = torch.where(q.abs() < piv, -piv, q)
+        c = (q <= 0).to(torch.int32)
+        for j in range(1, n):
+            q = (d[:, j:j + 1] - e2[:, j - 1:j] / q) - xs
+            q = torch.where(q.abs() < piv, -piv, q)
+            c = c + (q <= 0).to(torch.int32)
+        t = torch.where(c >= 1, idx, T).amin(dim=1)
+        nhi = torch.where(t < T, lo + (t + 1).to(f64) * h, hi)
+        nlo = torch.where(t > 0, lo + t.to(f64) * h, lo)
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+    lam = ((lo + hi) * 0.5) * _pow2(ex)
+    return torch.where(zero, 0.0, lam)
+
+
+def jacobi_pairs(N):
+    """The round-robin pairs of csrc/eig.cu's eig_pairs for even N: for
+    each of the N - 1 rounds, (p [N/2], q [N/2]) with p < q."""
+    rounds = []
+    for r in range(N - 1):
+        pos = [0] + [(i - 1 + r) % (N - 1) + 1 for i in range(1, N)]
+        pr = [(min(pos[k], pos[N - 1 - k]), max(pos[k], pos[N - 1 - k]))
+              for k in range(N // 2)]
+        rounds.append(tuple(torch.tensor(c) for c in zip(*pr)))
+    return rounds
+
+
+def _rotation(app, aqq, apq):
+    """(c, s, t) in float64 of the Jacobi rotation that zeroes a_pq, as
+    csrc/eig.cu forms it from the float32 entries; the identity where
+    a_pq = 0."""
+    one = torch.ones_like(apq)
+    theta = (aqq - app) / (2.0 * apq)
+    at = theta.abs()
+    t = one / (at + sqrt_rn(at * at + 1.0))
+    t = torch.where(theta < 0, -t, t)
+    c = one / sqrt_rn(t * t + 1.0)
+    s = t * c
+    rot = apq != 0
+    return (torch.where(rot, c, one), torch.where(rot, s, 0.0),
+            torch.where(rot, t, 0.0))
+
+
+@_counted_plain
+def eig_pairs_plain(A):
+    """float32 eigenpairs of each member of A [B, n, n] (finite,
+    symmetric): ascending eigenvalues [B, n] and eigenvectors as columns
+    [B, n, n], csrc/eig.cu's eig_pairs op for op: cyclic Jacobi in
+    round-robin order on float32 entries, rotations formed and applied in
+    float64 (each 2 x 2 block by rows, then columns, rounded once and
+    mirrored), V accumulated in float64 and rounded at the end; the sweeps
+    end on a float64 off-norm test; a stable sort by eigenvalue. See the
+    source's header."""
+    B, n = A.shape[0], A.shape[-1]
+    f64, dev = torch.float64, A.device
+    N = n + (n & 1)
+    P = N // 2
+    As = torch.zeros((B, N, N), dtype=A.dtype, device=dev)
+    As[:, :n, :n] = A
+    V = torch.eye(N, dtype=f64, device=dev).expand(B, N, N).clone()
+    T = EIG_PAIRS_THREADS
+
+    def sq(x):
+        x = x.to(f64)
+        return x * x
+
+    fro2 = strided_sum(sq(As).reshape(B, -1), T)
+    offdiag = ~torch.eye(N, dtype=torch.bool, device=dev)
+    lower = torch.arange(P, device=dev)[:, None] > torch.arange(P, device=dev)
+    kk = torch.arange(P, device=dev)
+    rounds = [(p.to(dev), q.to(dev)) for p, q in jacobi_pairs(N)]
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    for _ in range(EIG_PAIRS_MAX_SWEEPS if B else 0):
+        off2 = strided_sum(torch.where(offdiag, sq(As), 0.0).reshape(B, -1), T)
+        active = active & ~(off2 <= _PAIRS_TOL2 * fro2)
+        if not bool(active.any()):
+            break
+        for p, q in rounds:
+            Ad = As.to(f64)
+            app, aqq, apq = Ad[:, p, p], Ad[:, q, q], Ad[:, p, q]
+            c, s, t = _rotation(app, aqq, apq)
+            pc, pr = p[:, None], p[None, :]
+            qc, qr = q[:, None], q[None, :]
+            X11, X12 = Ad[:, pc, pr], Ad[:, pc, qr]
+            X21, X22 = Ad[:, qc, pr], Ad[:, qc, qr]
+            ca, sa = c[:, :, None], s[:, :, None]
+            cb, sb = c[:, None, :], s[:, None, :]
+            Y11, Y12 = ca * X11 - sa * X21, ca * X12 - sa * X22
+            Y21, Y22 = sa * X11 + ca * X21, sa * X12 + ca * X22
+            Z11, Z12 = cb * Y11 - sb * Y12, sb * Y11 + cb * Y12
+            Z21, Z22 = cb * Y21 - sb * Y22, sb * Y21 + cb * Y22
+            N11 = torch.where(lower, Z11, Z11.mT)
+            N12 = torch.where(lower, Z12, Z21.mT)
+            N21 = torch.where(lower, Z21, Z12.mT)
+            N22 = torch.where(lower, Z22, Z22.mT)
+            N11[:, kk, kk] = app - t * apq
+            N22[:, kk, kk] = aqq + t * apq
+            N12[:, kk, kk] = 0.0
+            N21[:, kk, kk] = 0.0
+            new = As.clone()
+            new[:, pc, pr], new[:, pc, qr] = N11.to(A.dtype), N12.to(A.dtype)
+            new[:, qc, pr], new[:, qc, qr] = N21.to(A.dtype), N22.to(A.dtype)
+            V1, V2 = V[:, :, p], V[:, :, q]
+            nV = V.clone()
+            nV[:, :, p] = cb * V1 - sb * V2
+            nV[:, :, q] = sb * V1 + cb * V2
+            As = torch.where(active[:, None, None], new, As)
+            V = torch.where(active[:, None, None], nV, V)
+    lam = torch.diagonal(As, dim1=1, dim2=2)[:, :n]
+    order = torch.sort(lam, dim=1, stable=True).indices
+    vec = torch.gather(V[:, :n, :n], 2, order[:, None, :].expand(B, n, n))
+    return (torch.gather(lam, 1, order).contiguous(),
+            vec.to(A.dtype).contiguous())
+
 _PLAIN = (limb_extract_plain, limb_gemm_plain, int8_gemm_plain,
           cascade_from_c_plain, cascade_from_diags_plain, chol_plain,
           tri_solve_plain, plmap_add_plain, plmap_axpy_plain,
           plmap_residual_plain, ew_add_plain, ew_sub_plain, ew_mul_plain,
           ew_div_plain, ew_neg_plain, ew_symmetrize_plain, tree_sum_plain,
           tree_sum_fused_plain, ew_fma_plain, ew_fms_plain, ew_msub_plain,
-          ew_mms_plain, ew_sub2_plain, ew_select_plain)
+          ew_mms_plain, ew_sub2_plain, ew_select_plain, eig_lowest_plain,
+          eig_pairs_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -1646,10 +1866,81 @@ def ew_select(cond, pairs):
     return [dst for _, dst in pairs]
 
 
+# ---------------------------------------------------------------------------
+# the step-length eigensolver (csrc/eig.cu)
+# ---------------------------------------------------------------------------
+
+def _eig_operand(A, dtype, name):
+    if A.dtype != dtype or not A.is_cuda or A.dim() != 3 \
+            or A.shape[1] != A.shape[2] or A.shape[1] == 0:
+        raise ValueError(f"{name}: expected a {dtype} CUDA batch [B, n, n] "
+                         f"with n >= 1, got {A.dtype} {tuple(A.shape)} on "
+                         f"{A.device}")
+    return A.contiguous()
+
+
+def _eig_scratch(lib, kind, A):
+    """The global scratch (float64) of the route past shared memory (None
+    while shared memory holds a member), sized by the library itself."""
+    per = lib.clrs_eig_scratch(kind, A.shape[-1])
+    if not per:
+        return None
+    return torch.empty((A.shape[0] * per,), dtype=torch.float64,
+                       device=A.device)
+
+
+def eig_lowest(A):
+    """Lowest eigenvalue [B] of each member of a float64 batch A [B, n, n]
+    (finite, symmetric), one eig_lowest launch; see
+    :func:`eig_lowest_plain`. The step's default step-length route on the
+    card."""
+    if not _route(A):
+        return eig_lowest_plain(A)
+    from .build import library
+
+    A = _eig_operand(A, torch.float64, "eig_lowest")
+    lam = torch.empty((A.shape[0],), dtype=A.dtype, device=A.device)
+    if not A.shape[0]:
+        return lam
+    lib = library()
+    scratch = _eig_scratch(lib, 0, A)
+    rc = lib.clrs_eig_lowest(_ptr(A), _ptr(lam),
+                             None if scratch is None else _ptr(scratch),
+                             A.shape[0], A.shape[-1], _stream())
+    _launched(rc, "eig_lowest")
+    eig_lowest.launches += 1
+    return lam
+
+
+def eig_pairs(A):
+    """float32 eigenpairs of each member of A [B, n, n] (finite,
+    symmetric): ascending eigenvalues [B, n] and eigenvectors as columns
+    [B, n, n], one eig_pairs launch; see :func:`eig_pairs_plain`. The
+    certified step-length route's candidate decompositions on the card."""
+    if not _route(A):
+        return eig_pairs_plain(A)
+    from .build import library
+
+    A = _eig_operand(A, torch.float32, "eig_pairs")
+    B, n = A.shape[0], A.shape[-1]
+    lam = torch.empty((B, n), dtype=A.dtype, device=A.device)
+    vec = torch.empty((B, n, n), dtype=A.dtype, device=A.device)
+    if not B:
+        return lam, vec
+    lib = library()
+    scratch = _eig_scratch(lib, 1, A)
+    rc = lib.clrs_eig_pairs(_ptr(A), _ptr(lam), _ptr(vec),
+                            None if scratch is None else _ptr(scratch), B, n,
+                            _stream())
+    _launched(rc, "eig_pairs")
+    eig_pairs.launches += 1
+    return lam, vec
+
+
 _COUNTED = (limb_extract, limb_gemm, int8_gemm, cascade_from_c,
             cascade_from_diags, chol_batched, tri_solve_batched, plmap_add,
             plmap_axpy, plmap_residual, ew_add, ew_sub, ew_mul, ew_div,
             ew_neg, ew_symmetrize, tree_sum, tree_sum_fused, ew_fma, ew_fms,
-            ew_msub, ew_mms, ew_sub2, ew_select)
+            ew_msub, ew_mms, ew_sub2, ew_select, eig_lowest, eig_pairs)
 _COUNTED_NAMES = frozenset(f.__name__ for f in _COUNTED)
 reset_counts()

@@ -3,21 +3,22 @@
 An iteration runs in three parts (:func:`.step.make_step_parts`): a head
 from the state up to the step-length matrices, the eigensolver (float64
 lowest eigenvalues, or the certified route's f32 eigenpairs), and a tail
-from the step lengths to the new state and its info. On the
-card the head and the tail are each captured once in a CUDA graph and
-replayed; the eigensolver runs eagerly between them, because PyTorch reads
-cuSOLVER's ``info`` on the host, which capture refuses. Both graphs of a
-solve share one private memory pool. The graphs read and write static
-buffers: inputs are copied into them before a replay, and what a replay
-returns is overwritten by the next one.
+from the step lengths to the new state and its info. On the card the
+eigensolver is a kernel of the port (csrc/eig.cu), which reads nothing
+back to the host, so the three parts are captured together, once, as one
+CUDA graph (:class:`GraphStep`) and replayed: an iteration is one host
+call. The graph reads and writes static buffers: inputs are copied into
+them before a replay, and what a replay returns is overwritten by the
+next one.
 
 A captured kernel is launched by every replay, not by the capture, so the
 launch counters of :mod:`clrs_tpu_torch.dd.kernels` are kept truthful
 here: a :class:`Segment` takes back out the counts its capture added and
 adds them again at each replay.
 
-:class:`EagerSplit` runs the same three parts without graphs (the CPU, or
-any device), so one host loop drives both.
+:class:`EagerSplit` runs the same three parts without a graph (the CPU,
+where the eigensolver is LAPACK's, or a sharded step, whose collectives
+are not captured), so one host loop drives both.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ import time
 import torch
 
 from ..dd import kernels as dk
-from .step import _tree_map
 
 
 def record(fn):
@@ -70,66 +70,46 @@ def capture(fn, pool):
 
 class EagerSplit:
     """head() -> (mid, mats); eig(mats) -> lows; tail(mid, lows) -> out,
-    each run as it is called."""
+    run in turn at each :meth:`run`."""
 
     def __init__(self, head, eig, tail):
         self._head, self._eig, self._tail = head, eig, tail
 
-    def run_head(self):
-        self.mid, self.mats = self._head()
-
-    def run_eig(self):
-        self.lows = self._eig(self.mats)
-
-    def run_tail(self):
-        return self._tail(self.mid, self.lows)
+    def run(self):
+        mid, mats = self._head()
+        return self._tail(mid, self._eig(mats))
 
 
-class GraphSplit:
-    """The same three parts on the card: the head and the tail captured
-    once, after an eager warm-up on a side stream (PyTorch's graph recipe:
-    it builds the kernels, loads cuBLAS/cuSOLVER and copies the kernels'
-    tables to the device), the eigensolver eager between their replays,
-    its results (a tensor or a tuple of them per matrix batch) copied into
-    static buffers. ``head`` and ``tail`` must
-    read their inputs from static tensors. ``warmup_seconds`` and
-    ``capture_seconds`` (capture and instantiation of both graphs) are
-    kept; ``host_calls`` counts what the host issues: a replay, an
-    eigensolver call or a copy of its result is one."""
+class GraphStep:
+    """The same three parts on the card as one CUDA graph, captured once
+    after an eager warm-up on a side stream (PyTorch's graph recipe: it
+    builds the kernels and copies the kernels' tables to the device).
+    ``head`` and ``tail`` must read their inputs from static tensors.
+    ``warmup_seconds`` and ``capture_seconds`` (capture and
+    instantiation) are kept; ``host_calls`` counts what the host issues:
+    a replay is one, and so is each copy its caller counts in."""
 
     def __init__(self, head, eig, tail):
-        self._eig = eig
+        def whole():
+            mid, mats = head()
+            return tail(mid, eig(mats))
+
         t0 = time.perf_counter()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            mid, mats = head()
-            lows = eig(mats)
-            tail(mid, lows)
+            whole()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         self.warmup_seconds = t1 - t0
-        pool = torch.cuda.graph_pool_handle()
-        self.head, (self.mid, self.mats) = capture(head, pool)
-        self.lows = _tree_map(torch.empty_like, lows)
-        self.tail, self.out = capture(lambda: tail(self.mid, self.lows),
-                                      pool)
+        self.graph, self.out = capture(whole,
+                                       torch.cuda.graph_pool_handle())
         torch.cuda.synchronize()
         self.capture_seconds = time.perf_counter() - t1
         self.host_calls = 0
 
-    def run_head(self):
-        self.head.replay()
-        self.host_calls += 1
-
-    def run_eig(self):
-        copies = []
-        _tree_map(lambda buf, lo: copies.append(buf.copy_(lo)), self.lows,
-                  self._eig(self.mats))
-        self.host_calls += len(self.mats) + len(copies)
-
-    def run_tail(self):
-        self.tail.replay()
+    def run(self):
+        self.graph.replay()
         self.host_calls += 1
         return self.out

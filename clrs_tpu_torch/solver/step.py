@@ -24,20 +24,22 @@ dtype, and every op dispatches on it (:mod:`clrs_tpu_torch.dd.arith`):
   and the three chains plain expansion ops (the JAX package gates
   ``pl_map`` on f32 words).
 
-The step-length bound takes the lowest eigenvalue from float64
-``torch.linalg.eigvalsh`` with ``eig_safety`` (the JAX package's off-TPU
-route; the card's f64 is IEEE). With the module global
+The step-length bound takes the lowest eigenvalue of float64 matrices
+with ``eig_safety`` (the JAX package's off-TPU route): on the card the
+port's ``eig_lowest`` kernel (csrc/eig.cu), on the CPU LAPACK's
+``torch.linalg.eigvalsh``. With the module global
 ``_STEPLEN_VERIFIED = True`` (the JAX package's own override) f32 words
-take the JAX package's TPU route instead: f32 eigenpairs certified with
+take the JAX package's TPU route instead: f32 eigenpairs (the card's
+``eig_pairs`` Jacobi kernel, LAPACK's ``eigh`` on the CPU) certified with
 exact limb GEMMs (:func:`_eig_lo_certified`). The scalar-pack parts stay
 plain ops, as in the JAX package.
 
 A step is a Python function over device tensors, split at its
 eigensolver into a head and a tail (:func:`make_step_parts`);
 :func:`make_step_body` runs them eagerly, and on the card :func:`make_step`
-and :func:`make_run_chunk` replay them from CUDA graphs
-(:mod:`.graph`), the counterpart of the JAX package's ``jax.jit`` and
-``lax.while_loop``, on either substrate.
+and :func:`make_run_chunk` replay head, eigensolver and tail as one CUDA
+graph (:class:`.graph.GraphStep`), the counterpart of the JAX package's
+``jax.jit`` and ``lax.while_loop``, on either substrate.
 
 Sharded over a mesh (:mod:`clrs_tpu_torch.parallel`), every rank runs the
 same step on its slice of the cluster, class or scalar-pack axes; where a
@@ -955,10 +957,12 @@ def _errors(ds, Pres, Pres_s, pres, dres):
 def _eig_input(W2):
     """The eigensolver's input from L^-1 dM L^-T words [2L, n, n]: the f64
     sum of the words, symmetrized, with every member that holds a NaN or
-    an Inf (a failed Cholesky leaves NaNs past its pivot) set to zero.
-    Returns (matrices, bad [2L]). cuSOLVER reports such a member through
-    its ``info``, on which PyTorch raises; LAPACK (the JAX package's
-    eigvalsh) returns NaN for it, which :func:`_step_lengths` puts back."""
+    an Inf (a failed Cholesky leaves NaNs past its pivot) set to zero, so
+    that the eigensolver sees finite matrices only (the card's kernels
+    take nothing else, and PyTorch raises on LAPACK's info for a NaN
+    member). Returns (matrices, bad [2L]). LAPACK (the JAX package's
+    eigvalsh) returns NaN for such a member, which :func:`_step_lengths`
+    puts back."""
     A64 = _f64sum(W2)
     A64 = 0.5 * (A64 + A64.transpose(-1, -2))
     bad = ~torch.isfinite(A64).all(dim=-1).all(dim=-1)
@@ -966,12 +970,15 @@ def _eig_input(W2):
 
 
 def eig_lowest(mats):
-    """Lowest eigenvalue of each member of each matrix batch, from float64
-    ``torch.linalg.eigvalsh`` (the JAX package's off-TPU route,
-    clrs_tpu/solver/step.py:1146-1166). On the card PyTorch reads
-    cuSOLVER's ``info`` on the host, so this runs eagerly between the two
-    captured segments of a step."""
-    return [torch.linalg.eigvalsh(A)[:, 0] for A in mats]
+    """Lowest eigenvalue of each member of each float64 matrix batch (the
+    JAX package's off-TPU route, ``jnp.linalg.eigvalsh``,
+    clrs_tpu/solver/step.py:1146-1166): on the card one ``eig_lowest``
+    kernel launch a batch (:func:`clrs_tpu_torch.dd.kernels.eig_lowest`),
+    which reads nothing back to the host, so the step's graph holds it;
+    on the CPU LAPACK's ``torch.linalg.eigvalsh``. Nothing falls back: a
+    kernel that does not build or launch raises."""
+    return [dk.eig_lowest(A) if A.is_cuda else torch.linalg.eigvalsh(A)[:, 0]
+            for A in mats]
 
 
 # The step-length route (clrs_tpu/solver/step.py:1083-1093): None picks as
@@ -1004,13 +1011,17 @@ def _eig_input_f32(W2):
 def eig_pairs(mats):
     """f32 eigenpairs (ascending eigenvalues [B, n], eigenvectors as
     columns [B, n, n]) of each matrix batch: the certified route's
-    candidate decompositions. Like :func:`eig_lowest`, it runs eagerly
-    between the captured segments on the card."""
-    return [tuple(torch.linalg.eigh(A)) for A in mats]
+    candidate decompositions (``jnp.linalg.eigh`` in the JAX package's TPU
+    step, clrs_tpu/solver/step.py:1123). On the card one ``eig_pairs``
+    Jacobi kernel launch a batch
+    (:func:`clrs_tpu_torch.dd.kernels.eig_pairs`), inside the step's
+    graph; on the CPU LAPACK's ``torch.linalg.eigh``."""
+    return [dk.eig_pairs(A) if A.is_cuda else tuple(torch.linalg.eigh(A))
+            for A in mats]
 
 
 def step_eig(mats):
-    """The eager eigensolver between a step's head and tail: the certified
+    """The eigensolver between a step's head and tail: the certified
     route's f32 eigenpairs for f32 matrices, else the lowest eigenvalues."""
     if mats and mats[0].dtype == F32:
         return eig_pairs(mats)
@@ -1567,11 +1578,11 @@ def make_step(ds: DeviceSDP, **kw):
     """The counterpart of the JAX package's ``jax.jit(make_step_body)``:
     ``step(state, pd_feas_prev) -> (new_state, info)``.
 
-    On the CPU this is :func:`make_step_body`. On the card the head and the
-    tail of :func:`make_step_parts` are captured in CUDA graphs at the first
-    call (:class:`.graph.GraphSplit`), with the eigensolver eager between
-    their replays; the words equal the eager step's bit for bit. Inputs are
-    copied into static buffers; the returned state and info ARE the tail
+    On the CPU this is :func:`make_step_body`. On the card the head, the
+    eigensolver and the tail of :func:`make_step_parts` are captured as
+    one CUDA graph at the first call (:class:`.graph.GraphStep`) and
+    replayed; the words equal the eager step's bit for bit. Inputs are
+    copied into static buffers; the returned state and info ARE the
     graph's static outputs, overwritten by the next call: clone what must
     outlive it. Passing them back as the next call's inputs is fine.
 
@@ -1579,7 +1590,7 @@ def make_step(ds: DeviceSDP, **kw):
     collectives are not captured."""
     if ds.device.type != "cuda" or not _CAPTURE or sharded(ds):
         return make_step_body(ds, **kw)
-    from .graph import GraphSplit
+    from .graph import GraphStep
 
     head, tail = make_step_parts(ds, **kw)
     bufs = {}
@@ -1589,15 +1600,12 @@ def make_step(ds: DeviceSDP, **kw):
             bufs["state"] = _tree_map(torch.clone, state)
             bufs["pd"] = _as_flag(pd_feas_prev, ds.device).clone()
             S, pd = bufs["state"], bufs["pd"]
-            bufs["split"] = GraphSplit(
+            bufs["graph"] = GraphStep(
                 lambda: head(S, pd), step_eig,
                 lambda mid, lows: tail(S, mid, lows))
         _tree_map(_assign, bufs["state"], state)
         _assign(bufs["pd"], pd_feas_prev)
-        split = bufs["split"]
-        split.run_head()
-        split.run_eig()
-        return split.run_tail()
+        return bufs["graph"].run()
 
     step.buffers = bufs
     return step
@@ -1620,16 +1628,17 @@ def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
     ok, mu is finite and the step lengths reach ``step_length_threshold``;
     otherwise state, info and pd_feas keep their last committed values.
 
-    On the card each iteration replays the captured head and tail of the
-    step (:class:`.graph.GraphSplit`, captured at the first call) around
-    the eager eigensolver; the commit, the termination tests and the code
-    ladder are device selects inside the tail graph. A graph cannot end a
-    loop, so after ``done`` an iteration commits nothing; the host stops
-    the chunk early instead where it can see ``done`` without a wait of
-    its own: a copy of the flag to pinned memory follows each tail replay,
-    and the host reads it after the next eigensolver call, which waits on
-    the device anyway (at most one head and one eigensolver call past
-    ``done``). On the CPU the same loop runs eagerly and stops at once.
+    On the card each iteration is one replay of the step's graph (head,
+    eigensolver, tail, and the commit, the termination tests and the code
+    ladder as device selects; :class:`.graph.GraphStep`, captured at the
+    first call), queued without a wait. A graph cannot end a loop, so
+    after ``done`` an iteration commits nothing; the host stops the chunk
+    early instead, keeping at most two iterations in flight: a copy of
+    ``done`` to one of two pinned flags follows replay i, and before it
+    queues replay i + 2 the host reads that flag, which waits only where
+    the device has not yet reached the copy (at most two iterations run
+    past ``done``, committing nothing). On the CPU the same loop runs
+    eagerly and stops at once.
 
     The returned state, pd_feas and info are the loop's own buffers,
     overwritten by the next call: clone what must outlive it. Passing them
@@ -1695,12 +1704,12 @@ def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
             from .graph import EagerSplit
             loop["split"] = EagerSplit(*parts)
             return
-        from .graph import GraphSplit
+        from .graph import GraphStep
         _assign(carry[5], True)     # the warm-up iteration commits nothing
-        loop["split"] = GraphSplit(*parts)
-        loop["done_host"] = torch.zeros((), dtype=torch.bool,
-                                        pin_memory=True)
-        loop["done_copied"] = torch.cuda.Event()
+        loop["split"] = GraphStep(*parts)
+        loop["done_host"] = [torch.zeros((), dtype=torch.bool,
+                                         pin_memory=True) for _ in range(2)]
+        loop["done_copied"] = [torch.cuda.Event() for _ in range(2)]
 
     def run(state, pd_feas, info, nmax):
         if not loop:
@@ -1712,18 +1721,20 @@ def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
         _tree_map(_assign, info_buf, dict(info))
         for buf in (it, code, done):
             buf.zero_()
-        for i in range(int(nmax)):
+        nmax = int(nmax)
+        for i in range(nmax):
             if i and not graphs and bool(done):
                 break
-            split.run_head()
-            split.run_eig()
-            if i and graphs and loop["done_copied"].query() \
-                    and bool(loop["done_host"]):
-                break
-            split.run_tail()
-            if graphs and i + 1 < nmax:
-                loop["done_host"].copy_(done, non_blocking=True)
-                loop["done_copied"].record()
+            if graphs and i >= 2:
+                # iteration i - 2's flag: a wait only where the device has
+                # not reached its copy yet
+                loop["done_copied"][i % 2].synchronize()
+                if bool(loop["done_host"][i % 2]):
+                    break
+            split.run()
+            if graphs and i + 2 < nmax:
+                loop["done_host"][i % 2].copy_(done, non_blocking=True)
+                loop["done_copied"][i % 2].record()
                 split.host_calls += 1
         return S, pd, info_buf, it, code, done
 

@@ -2,8 +2,8 @@
 reference's ``testing=true`` table, ClusteredLowRankSolver.jl
 src/solver.jl:664-718).
 
-An iteration replays two CUDA graphs around the eigensolver on the card,
-so phase costs cannot be read off the solve. This module runs each phase
+An iteration replays one CUDA graph on the card, so phase costs cannot
+be read off the solve. This module runs each phase
 of the step on its own, built from what :func:`.step.make_step_parts`'
 head and tail call on the same state, and times it: with CUDA events on
 the card, with the host clock on the CPU. Each phase runs eagerly, its

@@ -513,9 +513,10 @@ def test_step_on_card_matches_cpu(cuda, monkeypatch):
     first f64 eigensolver call (its input, L^-1 dM L^-T of the first
     step-length bound, is compared word by word), and the five info
     scalars of both steps agree at rel 1e-13, since the step lengths come
-    from two f64 eigensolvers. Both take the same route: a kernel launches
-    on the card where its plain version runs on the CPU, and the split
-    route and the chain kernels are among them."""
+    from two f64 eigensolvers (the eig_lowest kernel on the card, LAPACK on
+    the CPU, as the step takes them). Otherwise both take the same route: a
+    kernel launches on the card where its plain version runs on the CPU,
+    and the split route and the chain kernels are among them."""
     sdp = ct.ClusteredLowRankSDP(delsarte(ct, 3))
     rows, routes, first_eig = {}, {}, {}
     eig_input = TS._eig_input
@@ -539,11 +540,14 @@ def test_step_on_card_matches_cpu(cuda, monkeypatch):
         counts = K.counts()
         on_card = dev != "cpu"
         # kernel wrapper -> the route it names; its plain version likewise
-        pairs = list(zip(K._COUNTED, K._PLAIN))
+        # (the eigensolver is LAPACK's on the CPU, not a plain version)
+        pairs = [(f, p) for f, p in zip(K._COUNTED, K._PLAIN)
+                 if f is not K.eig_lowest]
         ran = {f.__name__ for f, p in pairs
                if counts[(f if on_card else p).__name__] > 0}
         idle = K._PLAIN if on_card else K._COUNTED
         assert all(counts[f.__name__] == 0 for f in idle)
+        assert (counts["eig_lowest"] > 0) == on_card
         routes[on_card] = ran
         rows[on_card] = r
     assert routes[True] == routes[False]
@@ -622,7 +626,7 @@ def test_graph_chunk_equals_eager_chunk_on_card(cuda, monkeypatch):
             carry = out[:3]
             rows.append(TS._tree_map(torch.clone, out))
         runs[capture] = rows
-        assert isinstance(run.loop["split"], G.GraphSplit) == capture
+        assert isinstance(run.loop["split"], G.GraphStep) == capture
     for a, b in zip(runs[True], runs[False]):
         assert _same_tree(a, b)
     it, code, done = (int(runs[True][-1][k]) for k in (3, 4, 5))
@@ -631,31 +635,35 @@ def test_graph_chunk_equals_eager_chunk_on_card(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_graph_replays_need_no_host_sync(cuda):
-    """The head and tail replays raise nothing under
-    torch.cuda.set_sync_debug_mode("error"); only the eigensolver between
-    them waits on the device."""
+    """The step's replay (head, the eigensolver kernel and tail in one
+    graph) raises nothing under torch.cuda.set_sync_debug_mode("error"),
+    on both step-length routes: no part of an iteration waits on the
+    device."""
     ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(delsarte(ct, 3)), nw=5,
                       device=cuda)
-    step = TS.make_step(ds, **STEP_KW)
-    step(TS.initial_state(ds, 100.0, 100.0), False)
-    split = step.buffers["split"]
-    for part in (split.run_head, split.run_eig, split.run_tail):
-        if part != split.run_eig:
-            torch.cuda.set_sync_debug_mode("error")
+    for verified in (None, True):
+        TS._STEPLEN_VERIFIED = verified
         try:
-            part()
+            step = TS.make_step(ds, **STEP_KW)
+            step(TS.initial_state(ds, 100.0, 100.0), False)
+        finally:
+            TS._STEPLEN_VERIFIED = None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step.buffers["graph"].run()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("capture", [True, False])
 def test_failing_cholesky_gives_code_1_on_card(capture, cuda, monkeypatch):
-    """A NaN in X makes chol(X) fail and the step-length matrices NaN,
-    where cuSOLVER's info is nonzero: the step and the chunk, through the
-    graphs and eagerly, end with ok False and code 1, not an exception;
-    so does X = -I."""
+    """A NaN in X makes chol(X) fail and the step-length matrices NaN (the
+    members the eigensolver then gets zeroed): the step and the chunk,
+    through the graph and eagerly, end with ok False and code 1, not an
+    exception; so does X = -I."""
     monkeypatch.setattr(TS, "_CAPTURE", capture)
     ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(delsarte(ct, 3)), nw=5,
                       device=cuda)
@@ -752,7 +760,9 @@ def test_slice_matmul_card_equals_cpu(k, nw, cuda):
 def test_f64_step_on_card_matches_cpu(cuda, monkeypatch):
     """Two f64 steps of delsarte(3,3) at nw 2: the words agree bit for bit
     up to the first eigensolver call (its input compared word by word);
-    the info scalars at rel 1e-13 (two f64 eigensolvers)."""
+    the info scalars at rel 1e-13 (two f64 eigensolvers: the eig_lowest
+    kernel on the card, LAPACK on the CPU). No other kernel of csrc/ and
+    no plain version runs on f64 words."""
     sdp = ct.ClusteredLowRankSDP(delsarte(ct, 3))
     rows, first_eig = {}, {}
     eig_input = TS._eig_input
@@ -773,7 +783,9 @@ def test_f64_step_on_card_matches_cpu(cuda, monkeypatch):
             feas = bool(info["pd_feas"])
             r.append([float(info[k]) for k in ("mu", "d_obj", "p_obj",
                                                "alpha_d", "alpha_p")])
-        assert all(v == 0 for v in K.counts().values())
+        counts = K.counts()
+        assert counts.pop("eig_lowest") == (2 if dev != "cpu" else 0)
+        assert all(v == 0 for v in counts.values())
         rows[dev != "cpu"] = r
     assert _same_nan(first_eig["cpu"], first_eig["cuda"])
     for a, b in zip(rows[False], rows[True]):
@@ -800,13 +812,11 @@ def test_f64_graph_step_equals_eager_step_on_card(nw, cuda):
         assert _same_tree(se, sg) and _same_tree(ie, ig)
         fe, fg = ie["pd_feas"], ig["pd_feas"].clone()
         sg = TS._tree_map(torch.clone, sg)
-    split = graph.buffers["split"]
-    for part in (split.run_head, split.run_tail):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            part()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.buffers["graph"].run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
 
 
@@ -992,3 +1002,132 @@ def test_step_runs_expansion_ops_as_kernels_on_card(cuda):
                  "ew_msub", "ew_mms", "ew_sub2"):
         assert c[name] > 0, name
     assert all(v == 0 for k, v in c.items() if k.endswith("_plain"))
+
+
+# ---------------------------------------------------------------------------
+# the step-length eigensolver (csrc/eig.cu): eig_lowest and eig_pairs, and
+# the one-graph iteration they make possible
+# ---------------------------------------------------------------------------
+
+def _sym_batch(B, n, kind, dtype, dev, seed=0):
+    """B symmetric n x n members: random, diagonal, a lowest eigenvalue of
+    multiplicity 3, or random with member 1 zero."""
+    rng = np.random.default_rng(seed + 31 * n + B)
+    a = rng.standard_normal((B, n, n))
+    a = a + np.swapaxes(a, 1, 2)
+    if kind == "diagonal":
+        a = np.stack([np.diag(np.diag(m)) for m in a])
+    elif kind == "repeated":
+        out = []
+        for m in a:
+            q, _ = np.linalg.qr(m + 2 * n * np.eye(n))
+            lam = np.sort(rng.standard_normal(n))
+            lam[:min(n, 3)] = lam[0]
+            out.append((q * lam) @ q.T)
+        a = np.stack(out)
+        a = 0.5 * (a + np.swapaxes(a, 1, 2))
+    elif kind == "zero":
+        a[1] = 0.0
+    return torch.tensor(a, dtype=dtype, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["eig_lowest", "eig_pairs"])
+@pytest.mark.parametrize("B, n, kind", [
+    (3, 1, "random"), (3, 2, "random"), (4, 11, "random"),
+    (3, 11, "diagonal"), (4, 96, "zero"), (2, 33, "repeated"),
+    (4, 96, "random"), (1, 128, "random"), (2, 137, "random"),
+    (2, 200, "random")])
+def test_eig_kernels_match_plain_on_card(name, B, n, kind, cuda):
+    """Each eigensolver kernel equals its plain version bit for bit, on
+    both memory routes (shared memory, and global past it: eig_lowest
+    from n 168, eig_pairs from n 135)."""
+    dt = torch.float64 if name == "eig_lowest" else torch.float32
+    A = _sym_batch(B, n, kind, dt, cuda)
+    K.reset_counts()
+    out = getattr(K, name)(A)
+    assert K.counts()[name] == 1
+    ref = getattr(K, name + "_plain")(A)
+    torch.cuda.synchronize()
+    assert _same_tree(list(out) if name == "eig_pairs" else [out],
+                      list(ref) if name == "eig_pairs" else [ref])
+    if name == "eig_lowest":
+        lib = torch.linalg.eigvalsh(A)[:, 0]
+        tol = 8 * n * 2.0 ** -53 * torch.linalg.matrix_norm(A)
+        assert bool(((out - lib).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+def test_one_graph_step_equals_eager_step_at_delsarte_3_10(cuda):
+    """At delsarte(3,10) the step's one graph (head, eig_lowest, tail)
+    gives the eager step's state and info word for word, each call one
+    replay."""
+    from fractions import Fraction
+
+    from clrs_tpu_torch.examples import delsarte_problem
+
+    ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(
+        delsarte_problem(3, 10, Fraction(1, 2))), nw=5, device=cuda)
+    body = TS.make_step_body(ds, **STEP_KW)
+    graph = TS.make_step(ds, **STEP_KW)
+    s0 = TS.initial_state(ds, 100.0, 100.0)
+    se, ie = body(s0, False)
+    sg, ig = graph(s0, False)
+    torch.cuda.synchronize()
+    assert isinstance(graph.buffers["graph"], G.GraphStep)
+    assert _same_tree(se, sg) and _same_tree(ie, ig)
+    calls = graph.buffers["graph"].host_calls
+    graph(s0, False)
+    assert graph.buffers["graph"].host_calls == calls + 1
+
+
+@pytest.mark.gpu
+def test_chunk_at_sync_every_4_gives_the_oracle(cuda):
+    """delsarte(3,10) through make_run_chunk in chunks of 4 (replays
+    queued two iterations ahead of the host's read of done): chip_smoke
+    phase 4's result, code 0 in 28 iterations within 1e-9 of the
+    oracle."""
+    from fractions import Fraction
+
+    from clrs_tpu_torch.examples import delsarte_problem
+
+    problem = delsarte_problem(3, 10, Fraction(1, 2))
+    iters = []
+    status, _, primal, _, code = ct.solvesdp(
+        problem, device=cuda, omega_p=100, omega_d=100, sync_every=4,
+        verbose=False, callback=lambda it, info: iters.append(it),
+        dual_error_threshold=1e-12, primal_error_threshold=1e-12)
+    assert code == 0 and ct.optimal(status) and iters[-1] == 28
+    assert abs(float(ct.objvalue(problem, primal)) - 13.15831434739031) < 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("substrate, verified", [("f32", None), ("f64", None),
+                                                 ("f32", True)])
+def test_card_solve_calls_no_cusolver(substrate, verified, cuda,
+                                      monkeypatch):
+    """torch.linalg's eigensolvers, made to raise on CUDA tensors, never
+    run in a card solve: f32, f64 and the certified route."""
+    from fractions import Fraction
+
+    from clrs_tpu_torch.examples import delsarte_problem
+
+    def refuse(fn):
+        def guarded(A, *a, **kw):
+            if A.is_cuda:
+                raise AssertionError("cuSOLVER ran in a card solve")
+            return fn(A, *a, **kw)
+        return guarded
+
+    for name in ("eigvalsh", "eigh", "eigvals", "eig"):
+        monkeypatch.setattr(torch.linalg, name,
+                            refuse(getattr(torch.linalg, name)))
+    monkeypatch.setattr(TS, "_STEPLEN_VERIFIED", verified)
+    problem = delsarte_problem(3, 10, Fraction(1, 2))
+    K.reset_counts()
+    _, _, _, _, code = ct.solvesdp(
+        problem, device=cuda, substrate=substrate, omega_p=100,
+        omega_d=100, maxiterations=5, verbose=False,
+        dual_error_threshold=1e-12, primal_error_threshold=1e-12)
+    assert code == 2
+    assert K.counts()["eig_pairs" if verified else "eig_lowest"] >= 5

@@ -5,7 +5,10 @@ Runs three eager iterations of delsarte(3, 95) with the certified route
 of every step-length class on their way to the certification, and for each
 batch certifies f32 candidate eigenpairs from
 
-  - torch.linalg.eigh on the card (the route's own pairs),
+  - the eig_pairs kernel on the card (the route's own pairs: Jacobi,
+    csrc/eig.cu),
+  - torch.linalg.eigh on the card (cuSOLVER, the route's pairs before the
+    kernel),
   - torch.linalg.eigh on the host (LAPACK),
   - float64 torch.linalg.eigh on the card, rounded to f32,
 
@@ -39,6 +42,7 @@ def main():
     import torch
 
     import chip_smoke as S
+    from clrs_tpu_torch.dd import kernels as K
     from clrs_tpu_torch.examples import delsarte_problem
     from clrs_tpu_torch.solver import step as TS
 
@@ -68,7 +72,8 @@ def main():
         lam, V = torch.linalg.eigh(A.double())
         return lam.float(), V.float()
 
-    solvers = {"card f32 eigh": lambda A: torch.linalg.eigh(A),
+    solvers = {"card eig_pairs kernel": K.eig_pairs,
+               "card f32 eigh (cuSOLVER)": lambda A: torch.linalg.eigh(A),
                "host f32 eigh (LAPACK)": host,
                "card f64 eigh, rounded to f32": rounded}
     for n in (int(v) for v in args.n.split(",")):

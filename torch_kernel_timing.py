@@ -21,7 +21,10 @@ tree_sum`` records (nw, shape, axis)), the fused forms through
 operand shapes, scale: None, a constant or its shape, mask shape)), the
 fused tree sums through ``clrs_tpu_torch.dd.linalg`` (``--kernel
 tree_fused`` records (nw, x, y, axis, acc, sub, scale_on, scale shape)) and
-the commit's select (``--kernel select`` records (nw, leaf shapes)). Then
+the commit's select (``--kernel select`` records (nw, leaf shapes)), and
+the step-length eigensolver through ``clrs_tpu_torch.solver.step``
+(``--kernel eig_lowest`` and ``eig_pairs`` record (B, n); with eig_pairs
+the solve runs again on the certified route, which calls it). Then
 it times
 the kernel at every recorded shape on random inputs of that shape with
 chip_smoke.py's ``time_ms`` (CUDA events around calls queued behind a spin
@@ -34,7 +37,10 @@ diagonal sums (form ``diags``) drawn from +-2^24, the chains on standard
 normal [L, n, n] words with mu and alpha as [L, 1, 1] broadcast scalars,
 the expansion ops and tree sums on contiguous words of the recorded shapes
 (word 0 over 16 decades, word k about 2^-24k of it), with {0,1} masks and
-scales, the select with a true cond (every word moves).
+scales, the select with a true cond (every word moves), the eigensolvers on
+random symmetric batches; for these the plain version's time, its bit
+identity with the kernel and cuSOLVER's time for the same function
+(torch.linalg.eigvalsh's lowest column, torch.linalg.eigh) as well.
 ``--kernel`` takes a comma list (one solve records them all); ``--shape
 kernel:a,b,...`` times a shape of that kernel besides (``--d 0``: no
 solve, only those; an extraction's L may be left out, the L of an nw-word
@@ -55,6 +61,7 @@ another checkout times that checkout's kernels. On a machine with a card:
     python3 torch_kernel_timing.py --kernel cascade --d 0 --shape cascade:5,4,22,22,diags
     python3 torch_kernel_timing.py --kernel expmap,tree_sum --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel expfuse,tree_fused,select --d 95 --iters 1
+    python3 torch_kernel_timing.py --kernel eig_lowest,eig_pairs --d 95 --iters 1
 """
 
 from __future__ import annotations
@@ -84,7 +91,9 @@ RECORDED = {"tri": ((("dd.linalg", "K"),), ("tri_solve_batched",)),
             "expfuse": ((("dd.arith", "K"),),
                         ("ew_fma", "ew_fms", "ew_msub", "ew_mms", "ew_sub2")),
             "tree_fused": ((("dd.linalg", "K"),), ("tree_sum_fused",)),
-            "select": ((("dd.arith", "K"),), ("ew_select",))}
+            "select": ((("dd.arith", "K"),), ("ew_select",)),
+            "eig_lowest": ((("solver.step", "dk"),), ("eig_lowest",)),
+            "eig_pairs": ((("solver.step", "dk"),), ("eig_pairs",))}
 FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
           "int8_gemm": ("B", "M", "K", "N"),
           "limb_gemm": ("nw", "B", "m", "k", "n"),
@@ -96,7 +105,8 @@ FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
           "expfuse": ("form", "nw", "shapes", "scale", "mask"),
           "tree_fused": ("nw", "x", "y", "axis", "acc", "sub", "scale_on",
                          "scale"),
-          "select": ("nw", "shapes")}
+          "select": ("nw", "shapes"),
+          "eig_lowest": ("B", "n"), "eig_pairs": ("B", "n")}
 
 
 def _shape(kernel, wrapper, args, kw):
@@ -162,6 +172,8 @@ def _shape(kernel, wrapper, args, kw):
         cond, pairs = args
         return (len(pairs[0][0]), tuple(tuple(src[0].shape)
                                         for src, _ in pairs))
+    if kernel in ("eig_lowest", "eig_pairs"):
+        return tuple(args[0].shape[:2])
     a, b = args
     return tuple(a.shape) + (b.shape[2],)
 
@@ -310,14 +322,44 @@ def inputs(kernel, key, rng, S, K):
                 _tree_fused_args(key, rng, S))
     if kernel == "select":
         return ("ew_select",) + _select_fns(key, rng, S, K)
+    if kernel in ("eig_lowest", "eig_pairs"):
+        return (kernel, getattr(K, kernel), getattr(K, kernel + "_plain"),
+                (eig_input(kernel, key, rng),))
     B, M, k, N = key
     a, b = (torch.from_numpy(rng.integers(-65, 66, s).astype(np.int8))
             .to("cuda") for s in ((B, M, k), (B, k, N)))
     return ("int8_gemm", K.int8_gemm, K.int8_gemm_plain, (a, b))
 
 
+def eig_input(kernel, key, rng):
+    """A random symmetric batch [B, n, n] on the card: float64 for
+    eig_lowest, float32 for eig_pairs."""
+    import numpy as np
+    import torch
+
+    B, n = key
+    a = rng.standard_normal((B, n, n))
+    return torch.tensor(a + np.swapaxes(a, 1, 2), device="cuda",
+                        dtype=torch.float64 if kernel == "eig_lowest"
+                        else torch.float32)
+
+
+def library_eig(kernel):
+    """The PyTorch call computing the same function: cuSOLVER's
+    torch.linalg.eigvalsh (its lowest column) or torch.linalg.eigh."""
+    import torch
+
+    if kernel == "eig_lowest":
+        return lambda A: torch.linalg.eigvalsh(A)[:, 0]
+    return torch.linalg.eigh
+
+
 def _bound_ms(kernel, key, S, K):
     """chip_smoke.py's bound of one call at shape ``key``."""
+    if kernel == "eig_lowest":
+        return S.bound(*S.cost_eig_lowest(*key))[0]
+    if kernel == "eig_pairs":
+        return S.bound(*S.cost_eig_pairs(*key))[0]
     if kernel == "tri":
         nw, B, n, m, trans = key
         return S.bound(*S.cost_tri(nw, B, n, m, trans))[0]
@@ -454,13 +496,24 @@ def main():
     if args.d:
         problem = delsarte_problem(3, args.d, Fraction(1, 2))
 
+        from clrs_tpu_torch.solver import step as TS
+
+        def solve():
+            return ct.solvesdp(
+                problem, device="cuda", omega_p=100, omega_d=100,
+                dual_error_threshold=1e-12, primal_error_threshold=1e-12,
+                maxiterations=args.iters, verbose=False)
+
         def run(ks):
             if not ks:
-                return ct.solvesdp(
-                    problem, device="cuda", omega_p=100, omega_d=100,
-                    dual_error_threshold=1e-12,
-                    primal_error_threshold=1e-12,
-                    maxiterations=args.iters, verbose=False)
+                solve()
+                if "eig_pairs" in kernels:    # the certified route's too
+                    TS._STEPLEN_VERIFIED = True
+                    try:
+                        solve()
+                    finally:
+                        TS._STEPLEN_VERIFIED = None
+                return
             seen[ks[0]] = record(ks[0], lambda: run(ks[1:]))
 
         run(kernels)
@@ -470,12 +523,19 @@ def main():
         keys = list(sorted(seen.get(k, {}).items(), key=repr)) + [
             (key, 0) for kk, key in extra if kk == k]
         for key, calls in keys:
-            _, fn, _, a = inputs(k, key, rng, S, K)
+            _, fn, plain, a = inputs(k, key, rng, S, K)
             ms = S.time_ms(lambda: fn(*a), args.reps)
             per_it = calls / args.iters
-            rows.append(dict(zip(FIELDS[k], key), calls_per_iteration=per_it,
-                             ms=ms, ms_per_iteration=per_it * ms,
-                             bound_ms=_bound_ms(k, key, S, K)))
+            row = dict(zip(FIELDS[k], key), calls_per_iteration=per_it,
+                       ms=ms, ms_per_iteration=per_it * ms)
+            if k in ("eig_lowest", "eig_pairs"):
+                lib = library_eig(k)
+                same, _ = S._compare(S._flat(fn(*a)), S._flat(plain(*a)))
+                row.update(bit_identical_to_plain=same,
+                           plain_ms=S.time_ms(lambda: plain(*a), 1),
+                           library_ms=S.time_ms(lambda: lib(*a), args.reps))
+            row["bound_ms"] = _bound_ms(k, key, S, K)
+            rows.append(row)
             form = (("transposed" if key[-1] else "forward") if k == "tri"
                     else key[0] if k in ("plmap", "expmap", "expfuse")
                     else "all")

@@ -20,8 +20,14 @@ the two forms of the triangular solve apart), the calls and device ms per
 iteration of each of the port's CUDA kernels (by template instance), the
 same summed over the step's expansion arithmetic (the expmap, tree_sum,
 expfuse and expselect instances of csrc/expmap.cu, exptree.cu and
-expfuse.cu) and over PyTorch's own kernels, and the largest device times
-by kernel name. With ``--sites`` it profiles one eager chunk iteration
+expfuse.cu) and over PyTorch's own kernels, the step-length eigensolver's
+kernels apart (the port's eig_lowest/eig_pairs kernels of csrc/eig.cu,
+and every kernel that ran inside the step's eigensolver call where it
+runs eagerly, as cuSOLVER's did), the shapes of the eigensolver's inputs
+with the time of one torch.linalg.eigvalsh (f64) or eigh (f32) call on a
+random symmetric input of each (cuSOLVER, CUDA events around calls that
+each wait on the host for cuSOLVER's info; ``--no-library`` skips them),
+and the largest device times by kernel name. With ``--sites`` it profiles one eager chunk iteration
 (the step and the commit, make_run_chunk without graphs) instead and
 prints the kernels that are not the port's by call site: every PyTorch op
 runs inside a ``torch.profiler.record_function`` named after the
@@ -61,17 +67,21 @@ def main():
     ap.add_argument("--substrate", choices=("f32", "f64"), default="f32")
     ap.add_argument("--nw", type=int, default=None,
                     help="words (default 5 on f32, 2 on f64)")
+    ap.add_argument("--no-library", action="store_true",
+                    help="skip the cuSOLVER times at the eigensolver's "
+                    "input shapes")
     ap.add_argument("--sites", action="store_true",
                     help="the kernels that are not the port's, by call "
                     "site, in one eager chunk iteration")
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from chip_smoke import device_sdp, drive
     from clrs_tpu_torch.dd import kernels as K
     from clrs_tpu_torch.examples import delsarte_problem
+    from clrs_tpu_torch.solver import step as TS
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -88,6 +98,15 @@ def main():
                               substrate=args.substrate, nw=nw,
                               **sites(ds, args.top))), flush=True)
         return
+    eig_inputs = set()
+    step_eig = TS.step_eig
+
+    def traced_eig(mats):
+        eig_inputs.update((tuple(A.shape), str(A.dtype)) for A in mats)
+        with record_function("eigensolver"):
+            return step_eig(mats)
+
+    TS.step_eig = traced_eig     # the loop takes it up when it is set up
     stats, _, one = drive(ds, args.mode, N)
     K.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -128,6 +147,7 @@ def main():
     ported = [sum(v[i] for v in port.values()) for i in (0, 1)]
     torch_own = [len(dev) - ported[0],
                  sum(t for _, t in by_name.values()) - ported[1]]
+    eig = eigensolver_kernels(prof, port)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
     print(json.dumps({
         "card": card, "checkout": str(Path(__file__).resolve().parent),
@@ -149,9 +169,52 @@ def main():
             [v / N for v in expansion],
         "pytorch_kernel_calls_and_device_ms_per_iteration":
             [v / N for v in torch_own],
+        "eigensolver_kernel_calls_and_device_ms_per_iteration":
+            [v / N for v in eig],
+        "eigensolver_inputs": sorted(eig_inputs),
+        "library_eig_ms": None if args.no_library else {
+            f"{dt} {list(sh)}": library_eig_ms(sh, dt)
+            for sh, dt in sorted(eig_inputs)},
         "top_device_ms_per_iteration": {
             nm[:90]: [c / N, t / N] for nm, (c, t) in top},
     }), flush=True)
+
+
+def eigensolver_kernels(prof, port):
+    """[calls, device ms] of the step-length eigensolver in a profile: the
+    port's eig_* kernels (captured in the step's graph or launched
+    eagerly) and every other kernel launched inside an eager eigensolver
+    call (the ``eigensolver`` range of main's wrapper)."""
+    calls = sum(c for k, (c, _) in port.items() if k.startswith("eig_"))
+    ms = sum(t for k, (_, t) in port.items() if k.startswith("eig_"))
+
+    def kernels(e):
+        return [k for k in e.kernels
+                if "(anonymous namespace)::eig_" not in k.name] + [
+                    k for c in e.cpu_children for k in kernels(c)]
+
+    for e in prof.events():
+        if e.name == "eigensolver":
+            ks = kernels(e)
+            calls += len(ks)
+            ms += sum(k.duration for k in ks) / 1e3
+    return calls, ms
+
+
+def library_eig_ms(shape, dtype):
+    """ms of one cuSOLVER call (torch.linalg.eigvalsh for float64 input,
+    eigh for float32) on a random symmetric batch of ``shape``, by CUDA
+    events (chip_smoke.time_ms)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import time_ms
+
+    a = np.random.default_rng(0).standard_normal(shape)
+    dt = torch.float64 if dtype == "torch.float64" else torch.float32
+    A = torch.tensor(a + np.swapaxes(a, -1, -2), dtype=dt, device="cuda")
+    fn = torch.linalg.eigvalsh if dt == torch.float64 else torch.linalg.eigh
+    return time_ms(lambda: fn(A), reps=5)
 
 
 def _site():
