@@ -32,12 +32,15 @@ Phases (one line each; any failure exits non-zero):
      and 8) with the product and the accumulate, and a false commit; the
      step-length eigensolver (csrc/eig.cu: eig_lowest, the f64 route's
      lowest eigenvalue, and eig_pairs, the certified route's f32 Jacobi
-     eigenpairs) bit for bit at every shape one (3,10) and one (3,95)
+     eigenpairs: the sweeps on A, then eig_pairs_vec, the replay of their
+     rotations on V) bit for bit at every shape one (3,10) and one (3,95)
      chunk iteration gives them on both routes and both substrates,
-     timed at the nw-5 (3,95) shape beside cuSOLVER's eigvalsh and eigh,
-     and at n 1 and 2, a diagonal batch, a zero member, a repeated lowest
-     eigenvalue and the global-memory route (n 137, 200), eig_lowest
-     within 8 n 2^-53 ||A||_F of cuSOLVER's eigvalsh at each;
+     timed at the nw-5 (3,95) shape beside cuSOLVER's eigvalsh and eigh
+     (eig_pairs' two launches apart), and at n 1 and 2, a diagonal batch,
+     a zero member, a repeated lowest eigenvalue, n 137 and 200
+     (eig_lowest's global-memory route), eig_lowest within 8 n 2^-53
+     ||A||_F of cuSOLVER's eigvalsh at each; the kernels beside cuSOLVER
+     alone at (B, n) (4, 128) and (2, 128);
   4. delsarte(3, 10) through clrs_tpu_torch.solvesdp (the card is its
      default device; each iteration is one replay of the step's CUDA
      graph, the eigensolver kernel inside it):
@@ -488,6 +491,16 @@ def cost_eig_pairs(B, n):
     return 4 * B * (2 * n * n + n), {"scalar": B * 9 * n ** 3}
 
 
+def cost_eig_pairs_vec(B, n):
+    """The eigenvectors of eig_pairs' call, which its replay launch forms:
+    their share of the direct method's work, not the replay's own (the
+    9 n^3 of cost_eig_pairs less the 4/3 n^3 that the eigenvalues alone
+    take, Golub and Van Loan 8.3.3) at the f32 rate, the ranks read and
+    the eigenvectors written."""
+    return 8 * B * n + 4 * B * n * n, {"scalar": B * (9 * n ** 3
+                                                       - 4 * n ** 3 // 3)}
+
+
 def _split(v, nw):
     """f64 values -> nw f32 words on the card (successive rounding)."""
     import numpy as np
@@ -648,7 +661,8 @@ class Kernels:
                   "ew_fma", "ew_fms", "ew_msub", "ew_mms", "ew_sub2",
                   "ew_select")},
               "eig_lowest": "clrs_tpu_torch/csrc/eig.cu",
-              "eig_pairs": "clrs_tpu_torch/csrc/eig.cu"}
+              "eig_pairs": "clrs_tpu_torch/csrc/eig.cu",
+              "eig_pairs_vec": "clrs_tpu_torch/csrc/eig.cu"}
     PL = "clrs_tpu/dd/pallas_linalg.py"
 
     def __init__(self):
@@ -1454,8 +1468,17 @@ EIG_REPLACES = {
     "eig_lowest": "clrs_tpu/solver/step.py:1163 (jnp.linalg.eigvalsh(A64) "
                   "in the jitted step off the TPU; not Pallas)",
     "eig_pairs": "clrs_tpu/solver/step.py:1123 (jnp.linalg.eigh(A32), XLA's "
-                 "Jacobi eigensolver in the jitted TPU step; not Pallas)"}
+                 "Jacobi eigensolver in the jitted TPU step; not Pallas)",
+    "eig_pairs_vec": "clrs_tpu/solver/step.py:1123 (the eigenvectors of "
+                     "jnp.linalg.eigh(A32): eig_pairs' rotations replayed "
+                     "on V = I; not Pallas)"}
 EIG_REPS = 20
+# (B, n) timed beside cuSOLVER besides the recorded shapes: delsarte(3,127)'s
+# and a batch of two, where cuSOLVER's eigh was quickest (kernel and library
+# only: the plain versions take seconds there)
+EIG_EXTRA_TIMED = ((4, 128), (2, 128))
+# kernels a wrapper launches inside itself: compared with it
+INNER = {"eig_pairs": ("eig_pairs_vec",)}
 
 
 def _record_eig(problem, nw, dtype, verified):
@@ -1538,13 +1561,16 @@ def compare_eig_kernels(ks, problem_3_10, problem_3_95):
     for bit against their plain versions at every shape one eager
     delsarte(3,10) and delsarte(3,95) chunk iteration gives them (the
     default route at f32 nw 5 and f64 nw 2: eig_lowest; the certified
-    route at f32 nw 5: eig_pairs), on random symmetric members; timed at
+    route at f32 nw 5: eig_pairs, and its replay eig_pairs_vec on the
+    sweep kernel's rotation logs), on random symmetric members; timed at
     the nw-5 (3,95) shape beside the plain version, cuSOLVER
-    (torch.linalg.eigvalsh, eigh) and the bound; then at n 1 and 2, a
-    diagonal batch, a batch with a zero member, a lowest eigenvalue of
-    multiplicity 3, B 1, and the global-memory route (eig_lowest n 200,
-    eig_pairs n 137 and 200). eig_lowest's lambda_min is held within
-    8 n 2^-53 ||A||_F of cuSOLVER's eigvalsh at each shape."""
+    (torch.linalg.eigvalsh, eigh) and the bound, eig_pairs' two launches
+    apart with the members' sweep counts; then at n 1 and 2, a diagonal
+    batch, a batch with a zero member, a lowest eigenvalue of multiplicity
+    3, B 1, n 137 and 200 (eig_lowest's global-memory route; eig_pairs
+    keeps A in shared memory to n 234); the kernels and cuSOLVER alone at
+    EIG_EXTRA_TIMED. eig_lowest's lambda_min is held within 8 n 2^-53
+    ||A||_F of cuSOLVER's eigvalsh at each shape."""
     import numpy as np
     import torch
 
@@ -1583,6 +1609,9 @@ def compare_eig_kernels(ks, problem_3_10, problem_3_95):
                  dict(B=key[0], n=key[1], at=where), cost, reps=EIG_REPS,
                  plain_reps=1, library=library)
         ks.compared[name, key] = name
+        if name == "eig_pairs":
+            _check_replay(ks, A, dict(B=key[0], n=key[1], at=where),
+                          cost is not None)
         err, ok, tol = _eig_vs_library(name, A, kernel(A))
         print(f"  {name} {key}: against cuSOLVER {err:.3e}"
               + (f" (allowance {tol:.3e})" if tol is not None else ""),
@@ -1601,14 +1630,71 @@ def compare_eig_kernels(ks, problem_3_10, problem_3_95):
             A = _eig_edge(rng, kind, B, n, dt)
             ks.check(name, EIG_REPLACES[name], kernel, plain, (A,),
                      dict(B=B, n=n, kind=kind))
+            if name == "eig_pairs":
+                _check_replay(ks, A, dict(B=B, n=n, kind=kind), False)
             _, ok, _ = _eig_vs_library(name, A, kernel(A))
             if not ok:
                 fail(f"{name} {kind} B {B} n {n}: lambda_min is not within "
                      f"8 n 2^-53 ||A||_F of cuSOLVER's eigvalsh")
-    print(f"  eigensolver scratch (doubles a member past shared memory): "
+    for key in EIG_EXTRA_TIMED:
+        for name in ("eig_lowest", "eig_pairs"):
+            A = T.eig_input(name, key, rng)
+            _time_eig(ks, name, A, T.library_eig(name))
+    print(f"  eigensolver scratch (doubles a member in global memory): "
           f"eig_lowest n 200: {_scratch(0, 200)}, n 96: {_scratch(0, 96)}; "
-          f"eig_pairs n 137: {_scratch(1, 137)}, n 96: {_scratch(1, 96)}",
-          flush=True)
+          f"eig_pairs (rotation log, A past n 234) n 240: {_scratch(1, 240)}, "
+          f"n 96: {_scratch(1, 96)}", flush=True)
+
+
+def _check_replay(ks, A, shape, timed):
+    """eig_pairs_vec against its plain version on the rotation logs that
+    the sweep kernel leaves for A (eig_pairs' second launch); where timed,
+    the sweep kernel's own time and the members' sweep counts besides."""
+    from clrs_tpu_torch.dd import kernels as K
+
+    B, n = A.shape[0], A.shape[-1]
+    _, log = K.eig_pairs_sweeps(A)
+    sweeps = log[:, K.eig_pairs_log_layout(n)[2]].long().tolist()
+    ks.check("eig_pairs_vec", EIG_REPLACES["eig_pairs_vec"], K.eig_pairs_vec,
+             K.eig_pairs_vec_plain, (log, n), dict(shape, sweeps=sweeps),
+             cost_eig_pairs_vec(B, n) if timed else None,
+             reps=EIG_REPS, plain_reps=1)
+    if timed:
+        ms = time_ms(lambda: K.eig_pairs_sweeps(A), EIG_REPS)
+        print(f"  eig_pairs ({B}, {n}): the sweep kernel alone {ms:.4f} ms, "
+              f"sweeps a member {sweeps}", flush=True)
+
+
+def _time_eig(ks, name, A, lib):
+    """The kernel (for eig_pairs also its two launches apart) and cuSOLVER
+    on A, kept under the record's timings with the bound; no plain
+    version."""
+    from clrs_tpu_torch.dd import kernels as K
+
+    B, n = A.shape[0], A.shape[-1]
+    cost = cost_eig_lowest(B, n) if name == "eig_lowest" else \
+        cost_eig_pairs(B, n)
+    t = dict(shape=dict(B=B, n=n, timed_only=True), plain_ms=None)
+    t["bound_ms"], t["bound_by"] = bound(*cost)
+    t["ms"] = time_ms(lambda: getattr(K, name)(A), EIG_REPS)
+    with GUARD.allowed():
+        t["library_ms"] = time_ms(lambda: lib(A), EIG_REPS)
+    ks.recs[name].setdefault("timings", []).append(t)
+    note = ""
+    if name == "eig_pairs":
+        _, log = K.eig_pairs_sweeps(A)
+        sweeps = log[:, K.eig_pairs_log_layout(n)[2]].long().tolist()
+        v = dict(shape=dict(B=B, n=n, sweeps=sweeps, timed_only=True),
+                 plain_ms=None, library_ms=None,
+                 ms=time_ms(lambda: K.eig_pairs_vec(log, n), EIG_REPS))
+        v["bound_ms"], v["bound_by"] = bound(*cost_eig_pairs_vec(B, n))
+        ks.recs["eig_pairs_vec"].setdefault("timings", []).append(v)
+        sweep_ms = time_ms(lambda: K.eig_pairs_sweeps(A), EIG_REPS)
+        note = (f" (sweep kernel {sweep_ms:.4f} ms, replay {v['ms']:.4f} ms, "
+                f"sweeps a member {sweeps})")
+    print(f"  {name} ({B}, {n}): kernel {t['ms']:.4f} ms{note}, cuSOLVER "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']})", flush=True)
 
 
 def _scratch(kind, n):
@@ -1634,7 +1720,7 @@ PATH_3_95 = PATH_3_10 + ("limb_gemm",)
 # the certified step-length route: f32 eigenpairs (eig_pairs), certified by
 # the limb GEMMs, in place of the lowest eigenvalue
 PATH_CERT_3_10 = tuple(n for n in PATH_3_10 if n != "eig_lowest") + (
-    "eig_pairs",)
+    "eig_pairs", "eig_pairs_vec")
 PATH_CERT_3_95 = PATH_CERT_3_10 + ("limb_gemm",)
 # ew_msub, ew_mms and ew_fms fuse chains of the scalar pack (the 1x1
 # blocks), which a problem without 1x1 blocks never runs: GW max-cut,
@@ -2618,7 +2704,8 @@ def compare_path_shapes(ks, seen, runs, phase=12):
                 ks.compared[group, key] = name
             else:
                 again += 1
-            names[name] = names.get(name, 0) + 1
+            for covered in (name,) + INNER.get(name, ()):
+                names[covered] = names.get(covered, 0) + 1
     print(f"phase {phase} shapes compared with the plain versions: {names} "
           f"({again} of them compared earlier in this run)", flush=True)
     for name in ks.recs:

@@ -88,12 +88,13 @@ def _declare(lib):
     lib.clrs_eig_scratch.argtypes = [i, i]
     lib.clrs_eig_scratch.restype = ll
     lib.clrs_eig_lowest.argtypes = [vp, vp, vp, i, i, vp]
-    lib.clrs_eig_pairs.argtypes = [vp, vp, vp, vp, i, i, vp]
+    lib.clrs_eig_pairs.argtypes = [vp, vp, vp, i, i, vp]
+    lib.clrs_eig_pairs_vec.argtypes = [vp, vp, i, i, vp]
     for fn in (lib.clrs_limb_extract, lib.clrs_limb_gemm, lib.clrs_chol,
                lib.clrs_tri_solve, lib.clrs_int8_gemm, lib.clrs_cascade,
                lib.clrs_plmap, lib.clrs_expmap, lib.clrs_tree_sum,
                lib.clrs_expfuse, lib.clrs_expselect, lib.clrs_eig_lowest,
-               lib.clrs_eig_pairs):
+               lib.clrs_eig_pairs, lib.clrs_eig_pairs_vec):
         fn.restype = i
     return lib
 

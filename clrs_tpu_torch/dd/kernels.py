@@ -25,7 +25,8 @@ so a run can show which route it took (:func:`reset_counts`,
 | ew_fma, ew_fms, ew_msub, ew_mms, ew_sub2 | expfuse<NW, FORM> (expfuse.cu) | XLA-fused chains of expops (solver/step.py:1621) |
 | ew_select          | expselect<NW> (expfuse.cu) | the commit's jnp.where (solver/step.py:1661-1666) |
 | eig_lowest         | eig_lowest (eig.cu)        | jnp.linalg.eigvalsh(A64) in the jitted step off the TPU (solver/step.py:1163) |
-| eig_pairs          | eig_pairs (eig.cu)         | jnp.linalg.eigh(A32), XLA's Jacobi, in the jitted TPU step (solver/step.py:1123) |
+| eig_pairs          | eig_pairs (eig.cu): the sweeps on A | jnp.linalg.eigh(A32), XLA's Jacobi, in the jitted TPU step (solver/step.py:1123) |
+| eig_pairs_vec      | eig_pairs_vec (eig.cu): the eigenvectors, the sweeps' rotations replayed on V = I | the same call's eigenvectors |
 
 The eigensolver kernels take float64 (eig_lowest) and float32 (eig_pairs)
 matrices, not words. The others are built for nw = 5..8, the f32
@@ -652,8 +653,9 @@ def ew_select_plain(cond, pairs):
 
 EIG_LO_THREADS = 512        # csrc/eig.cu LO_THREADS: the shifts of a round
 EIG_LO_MAX_ROUNDS = 10      # csrc/eig.cu LO_MAX_ROUNDS
-EIG_PAIRS_THREADS = 1024    # csrc/eig.cu PR_THREADS
+EIG_PAIRS_THREADS = 1024    # csrc/eig.cu PR_SUM: the partials of its sums
 EIG_PAIRS_MAX_SWEEPS = 30   # csrc/eig.cu PR_MAX_SWEEPS
+EIG_PAIRS_MAX_N = 2048      # csrc/eig.cu PR_MAX_N: the kernels take n <= 2048
 _EPS64 = 2.0 ** -52
 _DBL_MIN = 2.0 ** -1022
 _PAIRS_TOL2 = 2.0 ** -48    # off(A)^2 <= 2^-48 ||A||_F^2 ends the sweeps
@@ -772,6 +774,33 @@ def jacobi_pairs(N):
     return rounds
 
 
+def jacobi_next_block(P, k):
+    """The block (ia, ib), ia >= ib, of round r that holds round r + 1's
+    a_pq of pair k, for P pairs (csrc/eig.cu next_block): round r + 1's
+    pair k is (the x of pair k + 1, the y of pair k - 1) of round r; pair
+    0 keeps position 0 and takes the x of pair 1, pair P - 1 takes the y
+    of pairs P - 1 and P - 2; with P = 1 it is the diagonal block, whose
+    a_pq the round set to zero."""
+    if P == 1:
+        return 0, 0
+    if k == 0:
+        return 1, 0
+    if k == P - 1:
+        return P - 1, P - 2
+    return k + 1, k - 1
+
+
+def eig_pairs_log_layout(n):
+    """(G rounds, P pairs, offset of the sweep count) of a member's
+    rotation log in doubles (csrc/eig.cu log_layout): (c, s) of round g's
+    pair k at 2 (g P + k), g < EIG_PAIRS_MAX_SWEEPS (N - 1); then the
+    sweep count and the n ranks."""
+    N = n + (n & 1)
+    P = N // 2
+    G = EIG_PAIRS_MAX_SWEEPS * (N - 1)
+    return G, P, 2 * G * P
+
+
 def _rotation(app, aqq, apq):
     """(c, s, t) in float64 of the Jacobi rotation that zeroes a_pq, as
     csrc/eig.cu forms it from the float32 entries; the identity where
@@ -859,6 +888,36 @@ def eig_pairs_plain(A):
     return (torch.gather(lam, 1, order).contiguous(),
             vec.to(A.dtype).contiguous())
 
+@_counted_plain
+def eig_pairs_vec_plain(log, n):
+    """The eigenvectors [B, n, n] (float32, columns in the eigenvalues'
+    order) from the rotation logs [B, >= meta + 1 + n] (float64) that
+    csrc/eig.cu's eig_pairs leaves: csrc/eig.cu's eig_pairs_vec op for
+    op, each member's logged rotations, identities included, replayed on
+    V = I in float64 in round order (the V update of
+    :func:`eig_pairs_plain`), rounded once and placed by rank."""
+    B = log.shape[0]
+    N = n + (n & 1)
+    G, P, meta = eig_pairs_log_layout(n)
+    f64, dev = torch.float64, log.device
+    rot = log[:, :meta].reshape(B, G, P, 2)
+    rounds = log[:, meta].to(torch.int64) * (N - 1)
+    ranks = log[:, meta + 1:meta + 1 + n].to(torch.int64)
+    V = torch.eye(N, dtype=f64, device=dev).expand(B, N, N).clone()
+    pairs = [(p.to(dev), q.to(dev)) for p, q in jacobi_pairs(N)]
+    for g in range(int(rounds.max()) if B else 0):
+        p, q = pairs[g % (N - 1)]
+        cb, sb = rot[:, g, None, :, 0], rot[:, g, None, :, 1]
+        V1, V2 = V[:, :, p], V[:, :, q]
+        nV = V.clone()
+        nV[:, :, p] = cb * V1 - sb * V2
+        nV[:, :, q] = sb * V1 + cb * V2
+        V = torch.where((g < rounds)[:, None, None], nV, V)
+    vec = torch.empty((B, n, n), dtype=torch.float32, device=dev)
+    return vec.scatter_(2, ranks[:, None, :].expand(B, n, n),
+                        V[:, :n, :n].to(torch.float32))
+
+
 _PLAIN = (limb_extract_plain, limb_gemm_plain, int8_gemm_plain,
           cascade_from_c_plain, cascade_from_diags_plain, chol_plain,
           tri_solve_plain, plmap_add_plain, plmap_axpy_plain,
@@ -866,7 +925,7 @@ _PLAIN = (limb_extract_plain, limb_gemm_plain, int8_gemm_plain,
           ew_div_plain, ew_neg_plain, ew_symmetrize_plain, tree_sum_plain,
           tree_sum_fused_plain, ew_fma_plain, ew_fms_plain, ew_msub_plain,
           ew_mms_plain, ew_sub2_plain, ew_select_plain, eig_lowest_plain,
-          eig_pairs_plain)
+          eig_pairs_plain, eig_pairs_vec_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -1879,10 +1938,11 @@ def _eig_operand(A, dtype, name):
     return A.contiguous()
 
 
-def _eig_scratch(lib, kind, A):
-    """The global scratch (float64) of the route past shared memory (None
-    while shared memory holds a member), sized by the library itself."""
-    per = lib.clrs_eig_scratch(kind, A.shape[-1])
+def _eig_scratch(lib, A):
+    """eig_lowest's global scratch (float64) of the route past shared
+    memory (None while shared memory holds a member), sized by the library
+    itself."""
+    per = lib.clrs_eig_scratch(0, A.shape[-1])
     if not per:
         return None
     return torch.empty((A.shape[0] * per,), dtype=torch.float64,
@@ -1903,7 +1963,7 @@ def eig_lowest(A):
     if not A.shape[0]:
         return lam
     lib = library()
-    scratch = _eig_scratch(lib, 0, A)
+    scratch = _eig_scratch(lib, A)
     rc = lib.clrs_eig_lowest(_ptr(A), _ptr(lam),
                              None if scratch is None else _ptr(scratch),
                              A.shape[0], A.shape[-1], _stream())
@@ -1914,33 +1974,70 @@ def eig_lowest(A):
 
 def eig_pairs(A):
     """float32 eigenpairs of each member of A [B, n, n] (finite,
-    symmetric): ascending eigenvalues [B, n] and eigenvectors as columns
-    [B, n, n], one eig_pairs launch; see :func:`eig_pairs_plain`. The
-    certified step-length route's candidate decompositions on the card."""
+    symmetric, n <= EIG_PAIRS_MAX_N): ascending eigenvalues [B, n] and
+    eigenvectors as columns [B, n, n], an eig_pairs launch (the sweeps on
+    A, which log their rotations) and an :func:`eig_pairs_vec` launch (the
+    rotations replayed on V); see :func:`eig_pairs_plain`. The certified
+    step-length route's candidate decompositions on the card."""
     if not _route(A):
         return eig_pairs_plain(A)
+    lam, log = eig_pairs_sweeps(A)
+    return lam, eig_pairs_vec(log, A.shape[-1])
+
+
+def eig_pairs_sweeps(A):
+    """The first of :func:`eig_pairs`' launches on a CUDA batch A: the
+    sorted eigenvalues [B, n] and the members' rotation logs [B, per]
+    (float64; :func:`eig_pairs_log_layout`), which :func:`eig_pairs_vec`
+    replays; counted as ``eig_pairs.launches``."""
     from .build import library
 
     A = _eig_operand(A, torch.float32, "eig_pairs")
     B, n = A.shape[0], A.shape[-1]
-    lam = torch.empty((B, n), dtype=A.dtype, device=A.device)
-    vec = torch.empty((B, n, n), dtype=A.dtype, device=A.device)
-    if not B:
-        return lam, vec
+    if n > EIG_PAIRS_MAX_N:
+        raise ValueError(f"eig_pairs: n {n} > {EIG_PAIRS_MAX_N}")
     lib = library()
-    scratch = _eig_scratch(lib, 1, A)
-    rc = lib.clrs_eig_pairs(_ptr(A), _ptr(lam), _ptr(vec),
-                            None if scratch is None else _ptr(scratch), B, n,
-                            _stream())
-    _launched(rc, "eig_pairs")
-    eig_pairs.launches += 1
-    return lam, vec
+    lam = torch.empty((B, n), dtype=A.dtype, device=A.device)
+    log = torch.empty((B, lib.clrs_eig_scratch(1, n)), dtype=torch.float64,
+                      device=A.device)
+    if B:
+        rc = lib.clrs_eig_pairs(_ptr(A), _ptr(lam), _ptr(log), B, n,
+                                _stream())
+        _launched(rc, "eig_pairs")
+        eig_pairs.launches += 1
+    return lam, log
+
+
+def eig_pairs_vec(log, n):
+    """The eigenvectors [B, n, n] (float32, columns in the eigenvalues'
+    order) from the rotation logs [B, per] of :func:`eig_pairs_sweeps`, one
+    eig_pairs_vec launch; see :func:`eig_pairs_vec_plain`."""
+    if not _route(log):
+        return eig_pairs_vec_plain(log, n)
+    from .build import library
+
+    B = log.shape[0]
+    vec = torch.empty((B, n, n), dtype=torch.float32, device=log.device)
+    if not B:
+        return vec
+    lib = library()
+    per = lib.clrs_eig_scratch(1, n)
+    if log.dtype != torch.float64 or log.dim() != 2 or per <= 0 \
+            or log.shape[1] != per or not log.is_contiguous():
+        raise ValueError(f"eig_pairs_vec: expected the float64 rotation logs "
+                         f"[B, {per}] of eig_pairs at n {n}, got {log.dtype} "
+                         f"{tuple(log.shape)}")
+    rc = lib.clrs_eig_pairs_vec(_ptr(log), _ptr(vec), B, n, _stream())
+    _launched(rc, "eig_pairs_vec")
+    eig_pairs_vec.launches += 1
+    return vec
 
 
 _COUNTED = (limb_extract, limb_gemm, int8_gemm, cascade_from_c,
             cascade_from_diags, chol_batched, tri_solve_batched, plmap_add,
             plmap_axpy, plmap_residual, ew_add, ew_sub, ew_mul, ew_div,
             ew_neg, ew_symmetrize, tree_sum, tree_sum_fused, ew_fma, ew_fms,
-            ew_msub, ew_mms, ew_sub2, ew_select, eig_lowest, eig_pairs)
+            ew_msub, ew_mms, ew_sub2, ew_select, eig_lowest, eig_pairs,
+            eig_pairs_vec)
 _COUNTED_NAMES = frozenset(f.__name__ for f in _COUNTED)
 reset_counts()

@@ -1037,16 +1037,22 @@ def _sym_batch(B, n, kind, dtype, dev, seed=0):
     (3, 1, "random"), (3, 2, "random"), (4, 11, "random"),
     (3, 11, "diagonal"), (4, 96, "zero"), (2, 33, "repeated"),
     (4, 96, "random"), (1, 128, "random"), (2, 137, "random"),
-    (2, 200, "random")])
+    (2, 200, "random"), (2, 234, "random"), (2, 236, "random"),
+    (1, 520, "random"), (1, 1030, "random")])
 def test_eig_kernels_match_plain_on_card(name, B, n, kind, cuda):
     """Each eigensolver kernel equals its plain version bit for bit, on
     both memory routes (shared memory, and global past it: eig_lowest
-    from n 168, eig_pairs from n 135)."""
+    from n 168, eig_pairs' A from n 235), and past N 512 (every thread of
+    the sweep kernel shares the other blocks) and N 1024 (a thread forms
+    two rotations, pair P - 1 among them); eig_pairs launches its sweep
+    kernel and its replay once each."""
     dt = torch.float64 if name == "eig_lowest" else torch.float32
     A = _sym_batch(B, n, kind, dt, cuda)
     K.reset_counts()
     out = getattr(K, name)(A)
     assert K.counts()[name] == 1
+    if name == "eig_pairs":
+        assert K.counts()["eig_pairs_vec"] == 1
     ref = getattr(K, name + "_plain")(A)
     torch.cuda.synchronize()
     assert _same_tree(list(out) if name == "eig_pairs" else [out],
@@ -1055,6 +1061,23 @@ def test_eig_kernels_match_plain_on_card(name, B, n, kind, cuda):
         lib = torch.linalg.eigvalsh(A)[:, 0]
         tol = 8 * n * 2.0 ** -53 * torch.linalg.matrix_norm(A)
         assert bool(((out - lib).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, n", [(1, 1), (3, 2), (4, 11), (4, 96),
+                                  (2, 129)])
+def test_eig_replay_matches_plain_on_card(B, n, cuda):
+    """The replay of the sweep kernel's rotation logs equals its plain
+    version bit for bit on the same logs, and the sweep counts in the logs
+    lie in [1, 30] for random members."""
+    A = _sym_batch(B, n, "random", torch.float32, cuda)
+    _, log = K.eig_pairs_sweeps(A)
+    sweeps = log[:, K.eig_pairs_log_layout(n)[2]]
+    vec = K.eig_pairs_vec(log, n)
+    ref = K.eig_pairs_vec_plain(log, n)
+    torch.cuda.synchronize()
+    assert _same_tree([vec], [ref])
+    assert bool(((sweeps >= 1) & (sweeps <= 30)).all()) or n == 1
 
 
 @pytest.mark.gpu
@@ -1131,3 +1154,5 @@ def test_card_solve_calls_no_cusolver(substrate, verified, cuda,
         dual_error_threshold=1e-12, primal_error_threshold=1e-12)
     assert code == 2
     assert K.counts()["eig_pairs" if verified else "eig_lowest"] >= 5
+    if verified:
+        assert K.counts()["eig_pairs_vec"] == K.counts()["eig_pairs"]

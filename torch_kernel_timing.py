@@ -40,7 +40,10 @@ the expansion ops and tree sums on contiguous words of the recorded shapes
 scales, the select with a true cond (every word moves), the eigensolvers on
 random symmetric batches; for these the plain version's time, its bit
 identity with the kernel and cuSOLVER's time for the same function
-(torch.linalg.eigvalsh's lowest column, torch.linalg.eigh) as well.
+(torch.linalg.eigvalsh's lowest column, torch.linalg.eigh) as well, and
+for eig_pairs its two launches apart (the sweep kernel, the replay of its
+rotation logs on V with the replay's bound) with the members' sweep
+counts.
 ``--kernel`` takes a comma list (one solve records them all); ``--shape
 kernel:a,b,...`` times a shape of that kernel besides (``--d 0``: no
 solve, only those; an extraction's L may be left out, the L of an nw-word
@@ -62,6 +65,7 @@ another checkout times that checkout's kernels. On a machine with a card:
     python3 torch_kernel_timing.py --kernel expmap,tree_sum --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel expfuse,tree_fused,select --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel eig_lowest,eig_pairs --d 95 --iters 1
+    python3 torch_kernel_timing.py --kernel eig_lowest,eig_pairs --d 0 --shape eig_pairs:2,128
 """
 
 from __future__ import annotations
@@ -344,6 +348,20 @@ def eig_input(kernel, key, rng):
                         else torch.float32)
 
 
+def eig_pairs_parts(A, reps, S, K):
+    """eig_pairs' two launches timed apart on A: the sweep kernel, the
+    replay of its rotation logs (with its bound) and the members' sweep
+    counts."""
+    n = A.shape[-1]
+    _, log = K.eig_pairs_sweeps(A)
+    sweeps = log[:, K.eig_pairs_log_layout(n)[2]].long().tolist()
+    return dict(sweeps=sweeps,
+                sweep_ms=S.time_ms(lambda: K.eig_pairs_sweeps(A), reps),
+                replay_ms=S.time_ms(lambda: K.eig_pairs_vec(log, n), reps),
+                replay_bound_ms=S.bound(*S.cost_eig_pairs_vec(
+                    A.shape[0], n))[0])
+
+
 def library_eig(kernel):
     """The PyTorch call computing the same function: cuSOLVER's
     torch.linalg.eigvalsh (its lowest column) or torch.linalg.eigh."""
@@ -534,6 +552,8 @@ def main():
                 row.update(bit_identical_to_plain=same,
                            plain_ms=S.time_ms(lambda: plain(*a), 1),
                            library_ms=S.time_ms(lambda: lib(*a), args.reps))
+            if k == "eig_pairs":
+                row.update(eig_pairs_parts(a[0], args.reps, S, K))
             row["bound_ms"] = _bound_ms(k, key, S, K)
             rows.append(row)
             form = (("transposed" if key[-1] else "forward") if k == "tri"

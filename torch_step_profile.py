@@ -21,10 +21,10 @@ iteration of each of the port's CUDA kernels (by template instance), the
 same summed over the step's expansion arithmetic (the expmap, tree_sum,
 expfuse and expselect instances of csrc/expmap.cu, exptree.cu and
 expfuse.cu) and over PyTorch's own kernels, the step-length eigensolver's
-kernels apart (the port's eig_lowest/eig_pairs kernels of csrc/eig.cu,
-and every kernel that ran inside the step's eigensolver call where it
-runs eagerly, as cuSOLVER's did), the shapes of the eigensolver's inputs
-with the time of one torch.linalg.eigvalsh (f64) or eigh (f32) call on a
+kernels apart (the port's eig_lowest, eig_pairs and eig_pairs_vec
+kernels of csrc/eig.cu, and every kernel that ran inside the step's
+eigensolver call where it runs eagerly, as cuSOLVER's did), the shapes
+of the eigensolver's inputs with the time of one torch.linalg.eigvalsh (f64) or eigh (f32) call on a
 random symmetric input of each (cuSOLVER, CUDA events around calls that
 each wait on the host for cuSOLVER's info; ``--no-library`` skips them),
 and the largest device times by kernel name. With ``--sites`` it profiles one eager chunk iteration
@@ -42,6 +42,7 @@ a card:
     python3 torch_step_profile.py --d 95 --iters 1 --mode eager
     python3 torch_step_profile.py --d 10 --iters 3 --substrate f64
     python3 torch_step_profile.py --d 10 --sites
+    python3 torch_step_profile.py --d 95 --iters 2 --mode graph --certified
 
 Run one profile per process: torch.profiler loses device records in a
 process after a session with hundreds of thousands of them.
@@ -70,6 +71,9 @@ def main():
     ap.add_argument("--no-library", action="store_true",
                     help="skip the cuSOLVER times at the eigensolver's "
                     "input shapes")
+    ap.add_argument("--certified", action="store_true",
+                    help="the certified step-length route (solver.step."
+                    "_STEPLEN_VERIFIED = True: f32 eigenpairs, certified)")
     ap.add_argument("--sites", action="store_true",
                     help="the kernels that are not the port's, by call "
                     "site, in one eager chunk iteration")
@@ -107,6 +111,8 @@ def main():
             return step_eig(mats)
 
     TS.step_eig = traced_eig     # the loop takes it up when it is set up
+    if args.certified:
+        TS._STEPLEN_VERIFIED = True
     stats, _, one = drive(ds, args.mode, N)
     K.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -152,13 +158,15 @@ def main():
     print(json.dumps({
         "card": card, "checkout": str(Path(__file__).resolve().parent),
         "problem": f"delsarte(3,{args.d})", "substrate": args.substrate,
-        "nw": nw, "mode": args.mode, "iters": N,
+        "nw": nw, "mode": args.mode, "certified": args.certified,
+        "iters": N,
         "wall_ms_per_iteration": stats["wall_ms"],
         "wall_ms_per_iteration_profiled": wall_prof,
         "device_kernels_per_iteration": len(dev) / N,
         "device_busy_ms_per_iteration": busy if dev else None,
         "device_busy_share": busy / stats["wall_ms"] if dev else None,
         "host_launch_calls_per_iteration": host / N,
+        "host_calls_per_iteration": stats.get("host_calls"),
         "peak_device_mib": stats["peak_mib"],
         "peak_device_mib_above_held": stats["peak_above_held_mib"],
         "capture_s": stats.get("capture_s"),
