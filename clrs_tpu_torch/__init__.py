@@ -55,3 +55,6 @@ from .model.linearsystem import (  # noqa: E402
     partial_linearsystem,
 )
 from . import frontend  # noqa: E402
+from . import tracing  # noqa: E402
+
+tracing.instrument_compile()

@@ -20,20 +20,21 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("kernels.cu", "limb_gemm.cu", "int8_gemm.cu", "chol.cu", "expmap.cu",
-           "exptree.cu", "expfuse.cu", "eig.cu")
+           "exptree.cu", "expfuse.cu", "eig.cu", "graphwalk.cu")
 HEADERS = ("expansion.cuh", "common.cuh", "limbs.cuh", "expview.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false"]
 
 _LIB = None
-build_seconds = None      # wall seconds of the last build (None: reused)
+build_seconds = None      # the last build's span ``kernels.build`` (None: reused)
 
 
 def _nvcc():
@@ -90,11 +91,14 @@ def _declare(lib):
     lib.clrs_eig_lowest.argtypes = [vp, vp, vp, i, i, vp]
     lib.clrs_eig_pairs.argtypes = [vp, vp, vp, i, i, vp]
     lib.clrs_eig_pairs_vec.argtypes = [vp, vp, i, i, vp]
+    lib.clrs_graph_phase_nodes.argtypes = [vp, ctypes.POINTER(vp), i,
+                                           ctypes.POINTER(ll)]
     for fn in (lib.clrs_limb_extract, lib.clrs_limb_gemm, lib.clrs_chol,
                lib.clrs_tri_solve, lib.clrs_int8_gemm, lib.clrs_cascade,
                lib.clrs_plmap, lib.clrs_expmap, lib.clrs_tree_sum,
                lib.clrs_expfuse, lib.clrs_expselect, lib.clrs_eig_lowest,
-               lib.clrs_eig_pairs, lib.clrs_eig_pairs_vec):
+               lib.clrs_eig_pairs, lib.clrs_eig_pairs_vec,
+               lib.clrs_graph_phase_nodes):
         fn.restype = i
     return lib
 
@@ -107,11 +111,24 @@ def build(verbose=False):
     out = BUILD_DIR / f"libclrs_kernels_{_digest()}.so"
     if out.exists():
         return out
+    with tracing.span("kernels.build") as sp:
+        tmp, log = _compile(out)
+    build_seconds = sp.ns / 1e9
+    tracing.count("kernels.builds")
+    if verbose:
+        print(log)
+    os.replace(tmp, out)
+    return out
+
+
+def _compile(out):
+    """nvcc: every source into an object at once, then the link into a
+    temporary file beside ``out``: (its path, the ``-Xptxas -v`` log, also
+    written to ``ptxas.log``)."""
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     errs = [o.with_suffix(".log") for o in objs]
-    t0 = time.time()
     procs = []
     for s, o, e in zip(SOURCES, objs, errs):   # one nvcc per source, at once
         with open(e, "w") as f:
@@ -128,7 +145,6 @@ def build(verbose=False):
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                        capture_output=True, text=True)
-    build_seconds = time.time() - t0
     for o in objs:
         o.unlink(missing_ok=True)
     if r.returncode != 0:
@@ -136,10 +152,7 @@ def build(verbose=False):
                            f"{r.stderr[-8000:]}")
     log = "\n".join(logs)
     (BUILD_DIR / "ptxas.log").write_text(log)
-    if verbose:
-        print(log)
-    os.replace(tmp, out)
-    return out
+    return tmp, log
 
 
 def library():

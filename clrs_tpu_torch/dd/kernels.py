@@ -58,6 +58,7 @@ import collections
 import ctypes
 import functools
 import math
+import weakref
 
 import torch
 
@@ -89,29 +90,77 @@ def limb_params(nw):
 TRI_FORMS = {False: "tri_solve_batched<false>", True: "tri_solve_batched<true>"}
 
 
+class ReplayTally:
+    """The launches a captured graph's capture counted ({name: n}, named as
+    :func:`counts` names them) and its replays since the last
+    :func:`reset_counts`; ``owner`` is a weak reference to the graph's
+    holder. :func:`counts` adds launches x replays when it is read, so a
+    replay only increments ``replays``."""
+
+    __slots__ = ("launches", "replays", "owner")
+
+    def __init__(self, owner, launches):
+        self.launches = launches
+        self.replays = 0
+        self.owner = weakref.ref(owner)
+
+
+_TALLIES = []
+
+
+def replay_tally(owner, launches):
+    """A new :class:`ReplayTally`, read by :func:`counts` from now on.
+    The tallies of graphs that are gone are folded into the counters and
+    dropped, so a long-lived process keeps only the live ones."""
+    live = []
+    for t in _TALLIES:
+        if t.owner() is not None:
+            live.append(t)
+        elif t.replays:
+            add_counts(t.launches, t.replays)
+    _TALLIES[:] = live
+    t = ReplayTally(owner, launches)
+    _TALLIES.append(t)
+    return t
+
+
 def reset_counts():
     for f in _COUNTED:
         f.launches = 0
     tri_solve_batched.launches_by_form = dict.fromkeys(TRI_FORMS, 0)
     for f in _PLAIN:
         f.calls = 0
+    # a graph that is gone replays no more: its tally can go too
+    _TALLIES[:] = [t for t in _TALLIES if t.owner() is not None]
+    for t in _TALLIES:
+        t.replays = 0
 
 
 def counts():
     """{name: launches} for the kernels (and for each form of
     tri_solve_batched under its kernel's name) and {name_plain: calls} for
-    the plain versions."""
+    the plain versions, the replays of captured graphs included."""
     out = {f.__name__: f.launches for f in _COUNTED}
     out.update({TRI_FORMS[t]: v
                 for t, v in tri_solve_batched.launches_by_form.items()})
     out.update({f.__name__: f.calls for f in _PLAIN})
+    for t in _TALLIES:
+        if t.replays:
+            for name, n in t.launches.items():
+                out[name] += n * t.replays
     return out
+
+
+def launch_total():
+    """Kernel launches counted by the wrappers so far (each launch once,
+    replays of captured graphs left out)."""
+    return sum(f.launches for f in _COUNTED)
 
 
 def add_counts(delta, times=1):
     """Add ``times`` x ``delta`` ({name: n}, named as :func:`counts` names
-    them) to the counters: a replayed CUDA graph launches again the kernels
-    that its capture counted (:mod:`clrs_tpu_torch.solver.graph`)."""
+    them) to the counters (:mod:`clrs_tpu_torch.solver.graph` takes a
+    capture's counts back out with ``times`` -1)."""
     forms = {name: t for t, name in TRI_FORMS.items()}
     fns = {f.__name__: f for f in _COUNTED + _PLAIN}
     for name, n in delta.items():

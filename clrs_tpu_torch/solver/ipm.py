@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..compile.sdp import ClusteredLowRankSDP
 from ..dd.core import dd_add_f64 as _host_dd_add
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -101,15 +102,21 @@ def pick_substrate(substrate, device):
 
 def _to_host(info, **extra):
     """One device->host transfer for all scalar info entries (and any
-    ``extra`` device scalars: a chunk's it_done, code and done)."""
-    vals = dict(info, **extra)
-    keys = list(vals)
-    host = torch.stack([torch.as_tensor(vals[k]).to(torch.float64)
-                        for k in keys]).cpu()
-    out = {k: float(v) for k, v in zip(keys, host)}
-    for k in ("ok", "ok_X", "ok_S", "ok_Q", "pd_feas", "done"):
-        if k in out:
-            out[k] = bool(out[k])
+    ``extra`` device scalars: a chunk's it_done, code and done); after
+    its wait, the step graph's sampled phase times are read
+    (:func:`clrs_tpu_torch.tracing.read_sample`)."""
+    with tracing.span("host_read"):
+        vals = dict(info, **extra)
+        keys = list(vals)
+        stacked = torch.stack([torch.as_tensor(vals[k]).to(torch.float64)
+                               for k in keys])
+        with tracing.span("host_read.wait"):
+            host = stacked.cpu()
+        tracing.read_sample()
+        out = {k: float(v) for k, v in zip(keys, host)}
+        for k in ("ok", "ok_X", "ok_S", "ok_Q", "pd_feas", "done"):
+            if k in out:
+                out[k] = bool(out[k])
     return out
 
 
@@ -166,11 +173,14 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     and the host copy of the last committed iteration's info (with
     ``sync_every=1``: after every committed iteration).
 
-    ``testing=True`` prints, after the solve, the wall time of the first
-    chunk (which captures the graphs on the card) against the later ones,
+    ``testing=True`` prints, after the solve, the time of the first chunk
+    (which captures the graphs on the card) against the later ones, from
+    the ``chunk`` spans (:mod:`clrs_tpu_torch.tracing`), on the card the
+    graph's sampled device ms per phase (:func:`.timing.print_sampled`),
     and the per-phase table of :func:`.timing.print_breakdown` on the
     final state (clrs_tpu/solver/ipm.py:366-374)."""
     dev = resolve_device(device)
+    tracing.open_solve()
     substrate = pick_substrate(substrate, dev)
     if substrate not in ("f32", "f64"):
         raise ValueError(f"substrate must be 'f32' or 'f64', got "
@@ -248,7 +258,8 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
     error_code = 0
     it = 1
     t0 = _time.time()
-    step_times = []  # wall time per chunk (the first includes the capture)
+    chunks = [tracing.span_totals("chunk")]  # before, after the first chunk
+    phases0 = tracing.snapshot() if testing else None
     save_count = 0
     last_save_iter = 0
     save_t0 = _time.time()
@@ -285,11 +296,11 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
         if it == 1:
             feas_dev, info_dev = pd_feas, zero_info(info0, dev)
         n = min(sync_every, maxiterations - it + 1)
-        t_it = _time.time()
         state, feas_dev, info_dev, itd, code, done = run_chunk(
             state, feas_dev, info_dev, n)
         info = _to_host(info_dev, it_done=itd, code=code)
-        step_times.append(_time.time() - t_it)
+        if len(chunks) == 1:
+            chunks.append(tracing.span_totals("chunk"))
         itd, code = int(info.pop("it_done")), int(info.pop("code"))
         if itd:
             it += itd
@@ -377,16 +388,20 @@ def solvesdp(problem, *, device=DEFAULT_DEVICE, prec=None,
         print(f"\nPrimal objective: {p_obj}")
         print(f"Dual objective: {d_obj}")
         print(f"duality gap: {dual_gap}")
-    if testing and step_times:
+    if testing and len(chunks) == 2:
         # the reference's `testing=true` phase table (solver.jl:664-718):
-        # the first chunk (graph capture) against the steady state, then
-        # each phase timed on its own
-        rest = step_times[1:] or step_times
-        print(f"timing: total {solve_time:.2f}s over {len(step_times)} "
+        # the first chunk (graph capture) against the steady state, from
+        # the `chunk` spans; the graph's sampled phases, then each phase
+        # timed on its own
+        from .timing import print_breakdown, print_sampled
+        (n0, ns0), (n1, ns1) = chunks
+        n2, ns2 = tracing.span_totals("chunk")
+        rest = (ns2 - ns1) / (n2 - n1) if n2 > n1 else ns1 - ns0
+        print(f"timing: total {solve_time:.2f}s over {n2 - n0} "
               f"iterations; first call (incl. capture) "
-              f"{step_times[0]:.2f}s; steady-state "
-              f"{1e3 * sum(rest) / len(rest):.2f} ms/iter")
-        from .timing import print_breakdown
+              f"{(ns1 - ns0) / 1e9:.2f}s; steady-state "
+              f"{rest / 1e6:.2f} ms/iter")
+        print_sampled(phases0, tracing.snapshot())
         print_breakdown(ds, state)
 
     if pd_feas and dual_gap < duality_gap_threshold:

@@ -61,6 +61,7 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..compile.sdp import ClusteredLowRankSDP
 from ..dd import core as host_core
 from ..dd import kernels as dk
@@ -290,6 +291,7 @@ class DeviceSDP:
     scalar-pack axes for a mesh of d ranks with inert fake clusters and
     blocks (:mod:`clrs_tpu_torch.parallel`)."""
 
+    @tracing.timed("compile.device_sdp")
     def __init__(self, sdp: ClusteredLowRankSDP, nw: int = 5,
                  device=DEFAULT_DEVICE, dtype=F32, mesh_divisor: int = 1):
         if dtype not in (F32, F64):
@@ -1198,7 +1200,8 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
     device value on the host or copies host data to the device, so each
     can be captured in a CUDA graph (:func:`make_step`). ``plmap=False``
     runs the three elementwise chains as plain expansion ops instead of
-    the chain kernels."""
+    the chain kernels. The IPM phases are marked for the graph's timing
+    events (:func:`clrs_tpu_torch.tracing.phase`)."""
     K = float(ds.total_size)
     nw = ds.nw
     dev = ds.device
@@ -1225,6 +1228,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
 
         # mu and mu_p (the words of beta_infeasible, or 0 after a feasible
         # step: a select, as clrs_tpu/solver/step.py:1321)
+        tracing.phase("chol")
         mu = dd_div(_dot_state(ds, state, state), _scalar(Kt, nw))
         if correctoronly:
             mu_p = mu
@@ -1259,6 +1263,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
                 Xinv_s.append(dl.dd_zeros((cl.J, 0), nw, dev, dt))
 
         # XY products and the pairing panels (shared by Schur and d)
+        tracing.phase("schur")
         XYs, panels = [], []
         for j, cl in enumerate(ds.clusters):
             xyc, pc = [], []
@@ -1317,6 +1322,8 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         # Schur complement per cluster + KKT decomposition
         cholSs, LinvBs = [], []
         for j, cl in enumerate(ds.clusters):
+            if j:
+                tracing.phase("schur")
             if cl.row_shard:
                 L, LinvB, dgys, okb = _dist_schur_region(
                     cl, Xinv[j], Y[j], Xinv_s[j], Ys[j])
@@ -1325,6 +1332,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             else:
                 S = _schur_cluster(cl, Xinv[j], Y[j], Xinv_s[j], Ys[j],
                                    panels=panels[j])
+                tracing.phase("kkt")
                 L, okb = dl.b_cholesky(S)
                 okb = okb.all()
                 LinvB = dl.b_solve_tril(L, cl.B)
@@ -1343,6 +1351,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         ok = ok & okq
 
         # residuals at the current point
+        tracing.phase("direction")
         Pres, Pres_s, pres, dres = _residuals(ds, state, panelsY=panelsY)
         dual_error, primal_error, P_error, p_error = _errors(
             ds, Pres, Pres_s, pres, dres)
@@ -1442,6 +1451,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         dx, dy, dX, dY, dXs, dYs = search_direction(Rc, Rc_s)
 
         # the step-length matrices (the eigensolver's input)
+        tracing.phase("steplen")
         mats, bads, words = _step_mats(ds, dX, dY, cholX, cholY)
         if ds.comm is not None:
             ok, ok_X, ok_S = (ds.comm.all_and(f) for f in (ok, ok_X, ok_S))
@@ -1466,6 +1476,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             alpha_p = torch.where(pd_feas_now, a, alpha_p)
             alpha_d = torch.where(pd_feas_now, a, alpha_d)
 
+        tracing.phase("update")
         new_state = _axpy_state(state, mid["dx"], mid["dy"], mid["dX"],
                                 mid["dY"], mid["dXs"], mid["dYs"],
                                 alpha_d, alpha_p, plmap=plmap)
@@ -1712,30 +1723,39 @@ def make_run_chunk(ds: DeviceSDP, *, duality_gap_threshold: float,
         loop["done_copied"] = [torch.cuda.Event() for _ in range(2)]
 
     def run(state, pd_feas, info, nmax):
+        tracing.chunk_solve(not loop or state is not loop["carry"][0])
+        with tracing.span("chunk"):
+            return chunk(state, pd_feas, info, int(nmax))
+
+    def chunk(state, pd_feas, info, nmax):
         if not loop:
             setup(state, pd_feas, info)
         carry, split = loop["carry"], loop["split"]
         S, pd, info_buf, it, code, done = carry
-        _tree_map(_assign, S, state)
-        _assign(pd, pd_feas)
-        _tree_map(_assign, info_buf, dict(info))
-        for buf in (it, code, done):
-            buf.zero_()
-        nmax = int(nmax)
+        with tracing.span("chunk.copy_in"):
+            _tree_map(_assign, S, state)
+            _assign(pd, pd_feas)
+            _tree_map(_assign, info_buf, dict(info))
+            for buf in (it, code, done):
+                buf.zero_()
         for i in range(nmax):
             if i and not graphs and bool(done):
                 break
             if graphs and i >= 2:
                 # iteration i - 2's flag: a wait only where the device has
                 # not reached its copy yet
-                loop["done_copied"][i % 2].synchronize()
-                if bool(loop["done_host"][i % 2]):
+                with tracing.span("chunk.flag"):
+                    loop["done_copied"][i % 2].synchronize()
+                    stop = bool(loop["done_host"][i % 2])
+                if stop:
                     break
-            split.run()
+            with tracing.span("chunk.launch"):
+                split.run()
             if graphs and i + 2 < nmax:
-                loop["done_host"][i % 2].copy_(done, non_blocking=True)
-                loop["done_copied"][i % 2].record()
-                split.host_calls += 1
+                with tracing.span("chunk.flag"):
+                    loop["done_host"][i % 2].copy_(done, non_blocking=True)
+                    loop["done_copied"][i % 2].record()
+                    split.count_host_call()
         return S, pd, info_buf, it, code, done
 
     run.loop = loop

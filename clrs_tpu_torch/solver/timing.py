@@ -2,8 +2,9 @@
 reference's ``testing=true`` table, ClusteredLowRankSolver.jl
 src/solver.jl:664-718).
 
-An iteration replays one CUDA graph on the card, so phase costs cannot
-be read off the solve. This module runs each phase
+An iteration replays one CUDA graph on the card, whose phases the graph's
+own timing events measure as it runs (:mod:`clrs_tpu_torch.tracing`;
+:func:`sampled_phases`). This module also runs each phase
 of the step on its own, built from what :func:`.step.make_step_parts`'
 head and tail call on the same state, and times it: with CUDA events on
 the card, with the host clock on the CPU. Each phase runs eagerly, its
@@ -23,7 +24,8 @@ from ..dd import linalg as dl
 from ..dd.arith import dd_add, dd_div, dd_mul, dd_sub
 from . import step as _st
 
-__all__ = ["phase_breakdown", "print_breakdown"]
+__all__ = ["phase_breakdown", "print_breakdown", "sampled_phases",
+           "print_sampled"]
 
 
 def _time_it(fn, *args, dev, reps=3):
@@ -174,3 +176,37 @@ def print_breakdown(ds, state, reps: int = 3):
         print(f"{k:<30} {1e3 * v:>10.2f} {100 * v / total:>6.1f}%")
     print(f"{'sum of phases':<30} {1e3 * total:>10.2f}")
     return bd
+
+
+def sampled_phases(before, after):
+    """{phase: device ms per sampled replay} of the step graph's timing
+    events between two :func:`clrs_tpu_torch.tracing.snapshot` readings,
+    both buckets together ({} without samples: the CPU, or tracing off)."""
+    def totals(snap):
+        out = {}
+        for b in ("unprofiled", "profiled"):
+            for k, v in snap[b]["phases"].items():
+                n, t = out.get(k, (0, 0.0))
+                out[k] = (n + v["samples"], t + v["total_ms"])
+        return out
+
+    t0, t1 = totals(before), totals(after)
+    out = {}
+    for k, (n, t) in t1.items():
+        n0, s0 = t0.get(k, (0, 0.0))
+        if n > n0:
+            out[k] = (t - s0) / (n - n0)
+    return out
+
+
+def print_sampled(before, after):
+    """Print :func:`sampled_phases` as a table (nothing without samples)."""
+    ph = sampled_phases(before, after)
+    if not ph:
+        return ph
+    total = sum(ph.values())
+    print(f"{'graph phase (sampled)':<30} {'ms/iter':>10} {'share':>7}")
+    for k, v in sorted(ph.items(), key=lambda kv: -kv[1]):
+        print(f"{k:<30} {v:>10.3f} {100 * v / total:>6.1f}%")
+    print(f"{'graph (first to last event)':<30} {total:>10.3f}")
+    return ph
