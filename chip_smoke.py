@@ -440,6 +440,19 @@ def cost_tree_fused(nw, xs, ys, axis, accs, sub, scale_on, scs):
     return nbytes, {"scalar": M * per_col}
 
 
+def cost_expf64(form, nw, shape, acc):
+    """One expf64 conversion (csrc/expf64.cu): every word and the f64
+    values read once, the result written once; per element the nw exact
+    casts and nw - 1 f64 adds (SUM, MAXABS, with |.| and the max), or
+    three roundings and three f64 subtractions (SPLIT)."""
+    n = _numel(shape)
+    if form == "split":
+        return 8 * n + 4 * nw * n, {"f64": 6 * n}
+    out = 8 if form == "max_abs" else 8 * n
+    per = 2 * nw - 1 + (2 if form == "max_abs" else 0)
+    return 4 * nw * n + out + 8 * bool(acc), {"f64": n * per}
+
+
 def cost_select(nw, shapes):
     """The commit with cond true (every word moves): each source word
     read, each destination word written, once."""
@@ -660,6 +673,8 @@ class Kernels:
               **{name: "clrs_tpu_torch/csrc/expfuse.cu" for name in (
                   "ew_fma", "ew_fms", "ew_msub", "ew_mms", "ew_sub2",
                   "ew_select")},
+              **{name: "clrs_tpu_torch/csrc/expf64.cu" for name in (
+                  "expf64_sum", "expf64_max_abs", "expf64_split")},
               "eig_lowest": "clrs_tpu_torch/csrc/eig.cu",
               "eig_pairs": "clrs_tpu_torch/csrc/eig.cu",
               "eig_pairs_vec": "clrs_tpu_torch/csrc/eig.cu"}
@@ -1711,11 +1726,14 @@ def _scratch(kind, n):
 # The plain tree_sum runs only where a sharded axis is gathered between a
 # product and its sum (phase 13): every tree sum of a one-process step is
 # a tree_sum_fused (whose kernel, tree_sum<NW, PRO>, is tree_sum's too).
+# the f64 boundary of the expansion arithmetic: each conversion of an
+# expansion to f64 (a sum, a max |.|) and of an f64 scalar to words one launch
+EXPF64 = ("expf64_sum", "expf64_max_abs", "expf64_split")
 PATH_3_10 = ("eig_lowest", "limb_extract", "int8_gemm", "cascade_from_c",
              "chol_batched",
              "tri_solve_batched<false>", "tri_solve_batched<true>",
              "plmap_add", "plmap_axpy", "plmap_residual") + tuple(
-                 n for n in EXPANSION if n != "tree_sum")
+                 n for n in EXPANSION if n != "tree_sum") + EXPF64
 PATH_3_95 = PATH_3_10 + ("limb_gemm",)
 # the certified step-length route: f32 eigenpairs (eig_pairs), certified by
 # the limb GEMMs, in place of the lowest eigenvalue
@@ -2165,13 +2183,15 @@ def time_slice_matmul(card, shape):
 
 def check_no_kernels(label):
     """The f64 path runs no kernel of csrc/ but the step-length eigensolver
-    (eig_lowest, which it must run), no plain version and no torch.linalg
+    (eig_lowest, which it must run), no plain version but the f64
+    boundary's (f64 words take them: nothing converts) and no torch.linalg
     eigensolver on the card."""
     from clrs_tpu_torch.dd import kernels as K
 
     GUARD.check(label)
     counts = K.counts()
-    ran = {k: v for k, v in counts.items() if v and k != "eig_lowest"}
+    own = {"eig_lowest", "expf64_sum_plain", "expf64_max_abs_plain"}
+    ran = {k: v for k, v in counts.items() if v and k not in own}
     if ran:
         fail(f"{label} ran f32 kernels or plain versions: {ran}")
     if not counts["eig_lowest"]:

@@ -27,7 +27,7 @@ from .. import tracing
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("kernels.cu", "limb_gemm.cu", "int8_gemm.cu", "chol.cu", "expmap.cu",
-           "exptree.cu", "expfuse.cu", "eig.cu", "graphwalk.cu")
+           "exptree.cu", "expfuse.cu", "expf64.cu", "eig.cu", "graphwalk.cu")
 HEADERS = ("expansion.cuh", "common.cuh", "limbs.cuh", "expview.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false",
@@ -86,6 +86,9 @@ def _declare(lib):
                                  i, vp]
     lib.clrs_expselect.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
                                    ctypes.POINTER(ll), i, i, vp]
+    lib.clrs_expf64.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(ll), i,
+                                vp, ctypes.POINTER(ll), vp, ctypes.POINTER(i),
+                                i, vp, ll, i, i, vp]
     lib.clrs_eig_scratch.argtypes = [i, i]
     lib.clrs_eig_scratch.restype = ll
     lib.clrs_eig_lowest.argtypes = [vp, vp, vp, i, i, vp]
@@ -96,7 +99,8 @@ def _declare(lib):
     for fn in (lib.clrs_limb_extract, lib.clrs_limb_gemm, lib.clrs_chol,
                lib.clrs_tri_solve, lib.clrs_int8_gemm, lib.clrs_cascade,
                lib.clrs_plmap, lib.clrs_expmap, lib.clrs_tree_sum,
-               lib.clrs_expfuse, lib.clrs_expselect, lib.clrs_eig_lowest,
+               lib.clrs_expfuse, lib.clrs_expselect, lib.clrs_expf64,
+               lib.clrs_eig_lowest,
                lib.clrs_eig_pairs, lib.clrs_eig_pairs_vec,
                lib.clrs_graph_phase_nodes):
         fn.restype = i

@@ -24,13 +24,16 @@ so a run can show which route it took (:func:`reset_counts`,
 | tree_sum, tree_sum_fused | tree_sum<NW, PRO> (exptree.cu) | XLA-fused dd_sum (dd/linalg.py:110-127) and the products and adds around it |
 | ew_fma, ew_fms, ew_msub, ew_mms, ew_sub2 | expfuse<NW, FORM> (expfuse.cu) | XLA-fused chains of expops (solver/step.py:1621) |
 | ew_select          | expselect<NW> (expfuse.cu) | the commit's jnp.where (solver/step.py:1661-1666) |
+| expf64_sum, expf64_max_abs, expf64_split | expf64<NW, FORM> (expf64.cu) | XLA-fused _f64sum, dd_max_abs and _scalar_split (solver/step.py:104-140, dd/linalg.py:136-144) |
 | eig_lowest         | eig_lowest (eig.cu)        | jnp.linalg.eigvalsh(A64) in the jitted step off the TPU (solver/step.py:1163) |
 | eig_pairs          | eig_pairs (eig.cu): the sweeps on A | jnp.linalg.eigh(A32), XLA's Jacobi, in the jitted TPU step (solver/step.py:1123) |
 | eig_pairs_vec      | eig_pairs_vec (eig.cu): the eigenvectors, the sweeps' rotations replayed on V = I | the same call's eigenvectors |
 
 The eigensolver kernels take float64 (eig_lowest) and float32 (eig_pairs)
-matrices, not words. The others are built for nw = 5..8, the f32
-substrate's ladder; besides, limb_extract takes operands of 1..8 words to
+matrices, not words; the expf64 forms take f32 words of any count 1..8
+(and the split a float64 tensor), and leave f64 words, which they do not
+convert, to their plain versions. The others are built for nw = 5..8, the
+f32 substrate's ladder; besides, limb_extract takes operands of 1..8 words to
 the limb count L its caller gives, and limb_gemm and cascade_from_c take
 nw = 2: the word counts of the certified step-length route
 (clrs_tpu/solver/step.py:1096-1143).
@@ -700,6 +703,46 @@ def ew_select_plain(cond, pairs):
 # the step-length eigensolver (csrc/eig.cu): plain versions, op for op
 # ---------------------------------------------------------------------------
 
+@_counted_plain
+def expf64_sum_plain(x):
+    """Multi-word value -> float64 (exact word casts, summed in f64), f32
+    or f64 words (clrs_tpu/solver/step.py:131-138)."""
+    out = x[0].to(torch.float64)
+    for c in x[1:]:
+        out = out + c.to(torch.float64)
+    return out
+
+
+@_counted_plain
+def expf64_max_abs_plain(x, acc=None):
+    """max |x| as a float64 tensor (error reporting only: words are summed
+    in f64; clrs_tpu/dd/linalg.py:136-144), 0 for an empty x;
+    torch.maximum(acc, max |x|) with an accumulator."""
+    s = x[0].to(torch.float64)
+    for c in x[1:]:
+        s = s + c.to(torch.float64)
+    if s.numel() == 0:
+        m = torch.zeros((), dtype=torch.float64, device=s.device)
+    else:
+        m = s.abs().max()
+    return m if acc is None else torch.maximum(acc, m)
+
+
+@_counted_plain
+def expf64_split_plain(v, nw):
+    """float64 tensor -> nw f32 words: up to three by successive rounding,
+    so the full f64 value enters the expansion arithmetic, then +0 words
+    (clrs_tpu/solver/step.py:104-122, f32 words)."""
+    words = []
+    r = v
+    for _ in range(min(nw, 3)):
+        w = r.to(torch.float32)
+        words.append(w)
+        r = r - w.to(torch.float64)
+    words += [torch.zeros_like(words[0])] * (nw - len(words))
+    return tuple(words)
+
+
 EIG_LO_THREADS = 512        # csrc/eig.cu LO_THREADS: the shifts of a round
 EIG_LO_MAX_ROUNDS = 10      # csrc/eig.cu LO_MAX_ROUNDS
 EIG_PAIRS_THREADS = 1024    # csrc/eig.cu PR_SUM: the partials of its sums
@@ -974,7 +1017,8 @@ _PLAIN = (limb_extract_plain, limb_gemm_plain, int8_gemm_plain,
           ew_div_plain, ew_neg_plain, ew_symmetrize_plain, tree_sum_plain,
           tree_sum_fused_plain, ew_fma_plain, ew_fms_plain, ew_msub_plain,
           ew_mms_plain, ew_sub2_plain, ew_select_plain, eig_lowest_plain,
-          eig_pairs_plain, eig_pairs_vec_plain)
+          eig_pairs_plain, eig_pairs_vec_plain, expf64_sum_plain,
+          expf64_max_abs_plain, expf64_split_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -1975,6 +2019,129 @@ def ew_select(cond, pairs):
 
 
 # ---------------------------------------------------------------------------
+# the f64 boundary of the expansion arithmetic (csrc/expf64.cu)
+# ---------------------------------------------------------------------------
+
+EXPF64_FORMS = {"sum": 0, "max_abs": 1, "split": 2}
+EXPF64_THREADS = 512        # csrc/expf64.cu MAXABS_THREADS
+EXPF64_MAX_CLUSTER = 8      # csrc/expf64.cu MAX_CLUSTER
+EXPF64_PER_THREAD = 4       # entries a thread of a full max_abs cluster walks
+
+
+def expf64_cluster(numel):
+    """The blocks of one expf64_max_abs launch over ``numel`` entries (one
+    cluster, 1..EXPF64_MAX_CLUSTER): a block for each EXPF64_PER_THREAD x
+    EXPF64_THREADS entries. It depends on numel alone, and the reduction
+    is exact in any order, so the result does not depend on it."""
+    per_block = EXPF64_PER_THREAD * EXPF64_THREADS
+    return max(1, min(EXPF64_MAX_CLUSTER, -(-numel // per_block)))
+
+
+def _expf64_route(name, x):
+    """True for float32 CUDA words (checked: 1..8 words of one shape and
+    device), which take the kernel; False for f64 words (the f64
+    substrate's) and CPU words, which take the plain version."""
+    if x[0].dtype == torch.float64 or not _route(x[0]):
+        return False
+    _check_nw(len(x), name, OPERAND_NW)
+    for c in x:
+        if c.dtype != torch.float32 or c.device != x[0].device:
+            raise ValueError(f"{name}: words must be float32 tensors on "
+                             f"{x[0].device}, got {c.dtype} on {c.device}")
+    return True
+
+
+def expf64_pack(x=None, src=None):
+    """The host arguments of one expf64 launch, as csrc/expf64.cu reads
+    them: (numel, ctypes arrays of the word pointers and their element
+    strides over the coalesced dims, right-aligned, as :func:`ew_pack`
+    packs its first operand (the kernel reads slots [8] and [8][6]), the
+    ``shared`` flag, src's strides [6] or None, the dims [6], left-aligned,
+    and their count) for the words ``x`` (SUM, MAXABS; broadcast together,
+    as PyTorch broadcasts them) or the float64 tensor ``src`` (SPLIT). An
+    empty shape gives no dims (MAXABS then reads nothing)."""
+    if x is not None:
+        _, numel, ptrs, strides, shared, dims, nd = ew_pack([x])
+        src_st, shared = None, shared[0]
+    else:
+        numel = src.numel()
+        sd, (st,) = coalesce(tuple(src.shape), [src.stride()])
+        ptrs = strides = None
+        shared = 0
+        src_st = (ctypes.c_longlong * EW_MAX_DIMS)()
+        _place(src_st, 0, st)
+        dims, nd = (ctypes.c_int * EW_MAX_DIMS)(*sd), len(sd)
+    if numel == 0:
+        nd = 0
+    if numel >= 1 << 31:
+        raise ValueError(f"expf64: {numel} elements, the kernel indexes "
+                         "them in 32 bits")
+    return numel, ptrs, strides, shared, src_st, dims, nd
+
+
+def _expf64_launch(form, name, nw, out, x=None, acc=None, src=None):
+    from .build import library
+
+    numel, ptrs, strides, shared, src_st, dims, nd = expf64_pack(x, src)
+    rc = library().clrs_expf64(
+        EXPF64_FORMS[form], ptrs, strides, shared,
+        None if src is None else _ptr(src), src_st,
+        None if acc is None else _ptr(acc), dims, nd, _ptr(out), numel, nw,
+        expf64_cluster(numel), _stream())
+    _launched(rc, name)
+
+
+def expf64_sum(x):
+    """The f64 value of the expansion x, elementwise, as one expf64<NW,
+    SUM> launch for float32 CUDA words; see :func:`expf64_sum_plain`."""
+    if not _expf64_route("expf64_sum", x):
+        return expf64_sum_plain(x)
+    shape = tuple(O.broadcast_shapes(*(c.shape for c in x)))
+    out = torch.empty(shape, dtype=torch.float64, device=x[0].device)
+    if out.numel():
+        _expf64_launch("sum", "expf64_sum", len(x), out, x=x)
+        expf64_sum.launches += 1
+    return out
+
+
+def expf64_max_abs(x, acc=None):
+    """max |x| [, torch.maximum(acc, .)] as one expf64<NW, MAXABS> launch
+    for float32 CUDA words, acc a float64 CUDA scalar or None; see
+    :func:`expf64_max_abs_plain`."""
+    if not _expf64_route("expf64_max_abs", x):
+        return expf64_max_abs_plain(x, acc)
+    dev = x[0].device
+    if acc is not None and (acc.dtype != torch.float64 or acc.device != dev
+                            or acc.dim() != 0):
+        raise ValueError(f"expf64_max_abs: acc must be a float64 scalar on "
+                         f"{dev}, got {acc.dtype} {tuple(acc.shape)} on "
+                         f"{acc.device}")
+    out = torch.empty((), dtype=torch.float64, device=dev)
+    _expf64_launch("max_abs", "expf64_max_abs", len(x), out, x=x, acc=acc)
+    expf64_max_abs.launches += 1
+    return out
+
+
+def expf64_split(v, nw):
+    """The nw-word f32 expansion of the float64 tensor v (words 0..2 by
+    successive rounding, the rest +0), the words views of one [nw, ...]
+    buffer, as one expf64<NW, SPLIT> launch for a CUDA v; see
+    :func:`expf64_split_plain`."""
+    if v.dtype != torch.float64:
+        raise ValueError(f"expf64_split: expected a float64 tensor, got "
+                         f"{v.dtype}")
+    if not _route(v):
+        return expf64_split_plain(v, nw)
+    _check_nw(nw, "expf64_split", OPERAND_NW)
+    out = torch.empty((nw,) + tuple(v.shape), dtype=torch.float32,
+                      device=v.device)
+    if v.numel():
+        _expf64_launch("split", "expf64_split", nw, out, src=v)
+        expf64_split.launches += 1
+    return tuple(out[k] for k in range(nw))
+
+
+# ---------------------------------------------------------------------------
 # the step-length eigensolver (csrc/eig.cu)
 # ---------------------------------------------------------------------------
 
@@ -2087,6 +2254,6 @@ _COUNTED = (limb_extract, limb_gemm, int8_gemm, cascade_from_c,
             plmap_axpy, plmap_residual, ew_add, ew_sub, ew_mul, ew_div,
             ew_neg, ew_symmetrize, tree_sum, tree_sum_fused, ew_fma, ew_fms,
             ew_msub, ew_mms, ew_sub2, ew_select, eig_lowest, eig_pairs,
-            eig_pairs_vec)
+            eig_pairs_vec, expf64_sum, expf64_max_abs, expf64_split)
 _COUNTED_NAMES = frozenset(f.__name__ for f in _COUNTED)
 reset_counts()

@@ -93,15 +93,11 @@ def dd_dot(x, y, acc=None):
     return dd_sum_prod(x, y, None, acc)
 
 
-def dd_max_abs(x):
+def dd_max_abs(x, acc=None):
     """max |x| as a float64 tensor (error reporting only: words are summed
-    in f64)."""
-    s = x[0].to(torch.float64)
-    for c in x[1:]:
-        s = s + c.to(torch.float64)
-    if s.numel() == 0:
-        return torch.zeros((), dtype=torch.float64, device=s.device)
-    return s.abs().max()
+    in f64), ``torch.maximum(acc, max |x|)`` with a float64 scalar acc
+    (f32 words on the card: one expf64 launch, the maximum included)."""
+    return K.expf64_max_abs(x, acc)
 
 
 def bmm(a, b):

@@ -112,14 +112,7 @@ def _scalar_split(v, nw, dtype=F32):
     expansion arithmetic; f64 words take v as word 0."""
     if dtype == F64:
         return (v,) + (torch.zeros_like(v),) * (nw - 1)
-    words = []
-    r = v
-    for _ in range(min(nw, 3)):
-        w = r.to(F32)
-        words.append(w)
-        r = r - w.to(F64)
-    words += [torch.zeros_like(words[0])] * (nw - len(words))
-    return tuple(words)
+    return dk.expf64_split(v, nw)
 
 
 def _bcast_words(ws, L):
@@ -129,11 +122,9 @@ def _bcast_words(ws, L):
 
 
 def _f64sum(x):
-    """Multi-word value -> float64 (exact word casts, summed in f64)."""
-    out = x[0].to(F64)
-    for c in x[1:]:
-        out = out + c.to(F64)
-    return out
+    """Multi-word value -> float64 (exact word casts, summed in f64): one
+    expf64 launch for f32 words on the card."""
+    return dk.expf64_sum(x)
 
 
 def _dd_scale(x, a):
@@ -874,14 +865,13 @@ def _dot_state(ds, A, B):
 
 
 def _max_abs_all(ds, Ms, Ms_s):
-    v = torch.zeros((), dtype=F64, device=ds.device)
-    for Mc in Ms:
-        for Mb in Mc:
-            v = torch.maximum(v, dl.dd_max_abs(Mb))
-    for Mb in Ms_s:
-        if Mb[0].shape[0]:
-            v = torch.maximum(v, dl.dd_max_abs(Mb))
-    return v
+    """max |M| over the blocks, each block's max folded into the last
+    (maximum(0, m) is m for an m >= 0 or NaN, so the first needs none)."""
+    v = None
+    for Mb in [Mb for Mc in Ms for Mb in Mc] + [
+            Mb for Mb in Ms_s if Mb[0].shape[0]]:
+        v = dl.dd_max_abs(Mb, v)
+    return torch.zeros((), dtype=F64, device=ds.device) if v is None else v
 
 
 def _residuals(ds: DeviceSDP, state, panelsY=None):
@@ -937,8 +927,9 @@ def _objectives(ds: DeviceSDP, state):
     p_obj = dd_add(dl.dd_dot(ds.b, y, CY), ds.constant)
     diff = dd_sub(d_obj, p_obj)
     gap_num = _f64sum(diff).abs()
-    denom = torch.clamp((_f64sum(d_obj) + _f64sum(p_obj)).abs(), min=1.0)
-    return d_obj, p_obj, gap_num / denom
+    d64, p64 = _f64sum(d_obj), _f64sum(p_obj)
+    denom = torch.clamp((d64 + p64).abs(), min=1.0)
+    return d64, p64, gap_num / denom
 
 
 def _errors(ds, Pres, Pres_s, pres, dres):
@@ -946,9 +937,11 @@ def _errors(ds, Pres, Pres_s, pres, dres):
     dual_error = max(P_error, p_error) (solver.jl:806-847)."""
     P_error = _max_abs_all(ds, Pres, Pres_s)
     p_error = dl.dd_max_abs(pres)
-    primal_error = torch.zeros((), dtype=F64, device=ds.device)
+    primal_error = None
     for d_j in dres:
-        primal_error = torch.maximum(primal_error, dl.dd_max_abs(d_j))
+        primal_error = dl.dd_max_abs(d_j, primal_error)
+    if primal_error is None:
+        primal_error = torch.zeros((), dtype=F64, device=ds.device)
     if ds.comm is not None:
         P_error = ds.comm.all_max(P_error)
         primal_error = ds.comm.all_max(primal_error)
@@ -1180,7 +1173,7 @@ def make_assess(ds: DeviceSDP):
         mu_dd = dd_div(_dot_state(ds, state, state), _scalar(K, ds.nw))
         return {"dual_error": dual_error, "primal_error": primal_error,
                 "P_error": P_error, "p_error": p_error,
-                "d_obj": _f64sum(d_obj), "p_obj": _f64sum(p_obj),
+                "d_obj": d_obj, "p_obj": p_obj,
                 "dual_gap": gap, "mu": _f64sum(mu_dd)}
 
     return assess
@@ -1217,7 +1210,6 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
     # constants, made once so that a step copies nothing to the device
     Kt = torch.full((), K, dtype=dt, device=dev)
     beta_f, beta_i = f64(beta_feasible), f64(beta_infeasible)
-    bw = _scalar_split(beta_i, nw, dt)
     inf, one = f64(float("inf")), f64(1.0)
 
     def head(state, pd_feas_prev):
@@ -1227,14 +1219,15 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
         ok_S = ok.clone()
 
         # mu and mu_p (the words of beta_infeasible, or 0 after a feasible
-        # step: a select, as clrs_tpu/solver/step.py:1321)
+        # step: a select, as clrs_tpu/solver/step.py:1321; the split of 0
+        # is +0 words, so selecting before the split selects each word)
         tracing.phase("chol")
         mu = dd_div(_dot_state(ds, state, state), _scalar(Kt, nw))
         if correctoronly:
             mu_p = mu
         else:
-            mu_p = dd_mul(mu, tuple(torch.where(pd_feas_prev, 0.0, w)
-                                    for w in bw))
+            mu_p = dd_mul(mu, _scalar_split(
+                torch.where(pd_feas_prev, 0.0, beta_i), nw, dt))
 
         # chol(X)+chol(Y) per class as one [2L] batch; X^-1
         Xinv, Xinv_s, cholX, cholY = [], [], [], []
@@ -1438,7 +1431,8 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             "Xs": [dd_add(a, b) for a, b in zip(state["Xs"], dXs)],
             "Ys": [dd_add(a, b) for a, b in zip(state["Ys"], dYs)],
         }
-        r_val = _f64sum(_dot_state(ds, sstate, sstate)) / (_f64sum(mu) * K)
+        mu64 = _f64sum(mu)
+        r_val = _f64sum(_dot_state(ds, sstate, sstate)) / (mu64 * K)
         beta = torch.where(r_val < 1.0, r_val ** 2, r_val)
         beta_c = torch.where(
             pd_feas_now,
@@ -1457,7 +1451,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             ok, ok_X, ok_S = (ds.comm.all_and(f) for f in (ok, ok_X, ok_S))
         mid = {
             "dx": dx, "dy": dy, "dX": dX, "dY": dY, "dXs": dXs, "dYs": dYs,
-            "bads": bads, "words": words, "mu": _f64sum(mu),
+            "bads": bads, "words": words, "mu": mu64,
             "dual_error": dual_error,
             "primal_error": primal_error, "P_error": P_error,
             "p_error": p_error, "pd_feas": pd_feas_now, "beta_c": beta_c,
@@ -1486,7 +1480,7 @@ def make_step_parts(ds: DeviceSDP, *, gamma: float, beta_feasible: float,
             "primal_error": mid["primal_error"], "P_error": mid["P_error"],
             "p_error": mid["p_error"], "pd_feas": pd_feas_now,
             "alpha_d": alpha_d, "alpha_p": alpha_p, "beta_c": mid["beta_c"],
-            "d_obj": _f64sum(d_obj), "p_obj": _f64sum(p_obj),
+            "d_obj": d_obj, "p_obj": p_obj,
             "dual_gap": gap, "ok": mid["ok"], "ok_X": mid["ok_X"],
             "ok_S": mid["ok_S"], "ok_Q": mid["ok_Q"],
         }

@@ -761,8 +761,9 @@ def test_f64_step_on_card_matches_cpu(cuda, monkeypatch):
     """Two f64 steps of delsarte(3,3) at nw 2: the words agree bit for bit
     up to the first eigensolver call (its input compared word by word);
     the info scalars at rel 1e-13 (two f64 eigensolvers: the eig_lowest
-    kernel on the card, LAPACK on the CPU). No other kernel of csrc/ and
-    no plain version runs on f64 words."""
+    kernel on the card, LAPACK on the CPU). No other kernel of csrc/ runs
+    on f64 words, and no plain version but the f64 boundary's sum and
+    max |.|, which f64 words take on both devices."""
     sdp = ct.ClusteredLowRankSDP(delsarte(ct, 3))
     rows, first_eig = {}, {}
     eig_input = TS._eig_input
@@ -785,6 +786,9 @@ def test_f64_step_on_card_matches_cpu(cuda, monkeypatch):
                                                "alpha_d", "alpha_p")])
         counts = K.counts()
         assert counts.pop("eig_lowest") == (2 if dev != "cpu" else 0)
+        # f64 words take the f64 boundary's plain sum and max |.|
+        assert counts.pop("expf64_sum_plain") > 0
+        assert counts.pop("expf64_max_abs_plain") > 0
         assert all(v == 0 for v in counts.values())
         rows[dev != "cpu"] = r
     assert _same_nan(first_eig["cpu"], first_eig["cuda"])
@@ -1002,6 +1006,128 @@ def test_step_runs_expansion_ops_as_kernels_on_card(cuda):
                  "ew_msub", "ew_mms", "ew_sub2"):
         assert c[name] > 0, name
     assert all(v == 0 for k, v in c.items() if k.endswith("_plain"))
+
+
+# ---------------------------------------------------------------------------
+# the f64 boundary (csrc/expf64.cu): expf64<NW, FORM> against the plain
+# versions, PyTorch's kernels on the same CUDA words
+# ---------------------------------------------------------------------------
+
+# the cells' shapes: delsarte(3,10)'s and (3,40)'s blocks and scalar packs,
+# three-point's larger residual blocks, a long and a two-block max_abs
+EXPF64_SHAPES = [(), (1, 20), (1, 80), (2, 11, 11), (4, 41, 41),
+                 (12, 27, 27), (3000,), (40000,), (2, 0, 5)]
+
+
+def _f64_words(rng, shape, nw, dev, special):
+    """_exp_words, with NaN (one entry), +-Inf, -0 and subnormal words
+    where ``special``."""
+    ws = [c.cpu().numpy().reshape(-1).copy()
+          for c in _exp_words(rng, shape, nw, "cpu")]
+    n = ws[0].size
+    if special and n:
+        ws[0][0] = ws[min(1, nw - 1)][0] = -0.0
+        ws[0][n // 2] = np.nan
+        ws[min(2, nw - 1)][n // 3] = np.inf
+        ws[nw - 1][n - 1] = -np.inf if n > 2 else ws[nw - 1][n - 1]
+        for w in ws[1:]:
+            w[1::4] = np.float32(2.0 ** -140) * 7
+    return tuple(torch.from_numpy(w.reshape(shape)).to(dev) for w in ws)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", EXPF64_SHAPES)
+@pytest.mark.parametrize("nw", [1, 5, 8])
+def test_expf64_matches_plain_on_card(nw, shape, cuda):
+    """SUM and MAXABS (no accumulator, a finite one, a NaN one) equal their
+    plain versions bit for bit, NaN, +-Inf, -0 and subnormal words
+    included, on contiguous, transposed and [:, 0, 0] views; one launch
+    each (an empty sum launches nothing)."""
+    rng = np.random.default_rng(nw + len(shape))
+    for special in (False, True):
+        x = _f64_words(rng, shape, nw, cuda, special)
+        views = [x]
+        if len(shape) == 3 and x[0].numel():
+            views += [tuple(c.transpose(1, 2) for c in x),
+                      tuple(c[:, 0, 0] for c in x)]
+        for v in views:
+            K.reset_counts()
+            assert _same_tree([K.expf64_sum(v)], [K.expf64_sum_plain(v)])
+            assert _same_tree([K.expf64_max_abs(v)],
+                              [K.expf64_max_abs_plain(v)])
+            for acc in (0.5, float("nan")):
+                a = torch.tensor(acc, dtype=torch.float64, device=cuda)
+                assert _same_tree([K.expf64_max_abs(v, a)],
+                                  [K.expf64_max_abs_plain(v, a)])
+            torch.cuda.synchronize()
+            c = K.counts()
+            assert c["expf64_sum"] == (1 if v[0].numel() else 0)
+            assert c["expf64_max_abs"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw", [1, 2, 3, 5, 8])
+def test_expf64_split_matches_plain_on_card(nw, cuda):
+    """SPLIT equals its plain version bit for bit on values that need all
+    three words, NaN, +-Inf, -0, f64 subnormals and values whose f32
+    rounding is subnormal or overflows, 0-d and strided; the words are
+    views of one buffer; one launch a split."""
+    rng = np.random.default_rng(nw)
+    vals = np.concatenate([
+        rng.standard_normal(40) * 2.0 ** rng.integers(-60, 60, 40),
+        [1 + 2.0 ** -26 + 2.0 ** -49 + 2.0 ** -52, np.pi, 0.1, np.nan,
+         np.inf, -np.inf, -0.0, 5e-310, 2.0 ** -140 * (1 + 2.0 ** -40),
+         1e300, -3.5e38]])
+    v = torch.from_numpy(vals).to(cuda)
+    for src in (v, v[5], v[7], v.reshape(3, 17)[:, ::2],
+                v.reshape(3, 17).t()):
+        K.reset_counts()
+        got = K.expf64_split(src, nw)
+        assert _same_tree(list(got), list(K.expf64_split_plain(src, nw)))
+        assert all(w.data_ptr() == got[0].data_ptr() + k * 4 * src.numel()
+                   for k, w in enumerate(got))
+        torch.cuda.synchronize()
+        assert K.counts()["expf64_split"] == 1
+
+
+@pytest.mark.gpu
+def test_expf64_graph_iteration_equals_plain_route_at_delsarte_3_10(
+        cuda, monkeypatch):
+    """One delsarte(3,10) graph iteration through the expf64 kernels gives
+    the state and info words of the same graph iteration with the three
+    forms' plain versions (PyTorch's kernels) in their place; a replay
+    counts the kernels and no plain version; the graph holds at least 150
+    fewer PyTorch kernel nodes, and no phase holds more."""
+    from fractions import Fraction
+
+    from clrs_tpu_torch.examples import delsarte_problem
+
+    ds = TS.DeviceSDP(ct.ClusteredLowRankSDP(
+        delsarte_problem(3, 10, Fraction(1, 2))), nw=5, device=cuda)
+    s0 = TS.initial_state(ds, 100.0, 100.0)
+    out, info = {}, {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            for name in ("expf64_sum", "expf64_max_abs", "expf64_split"):
+                monkeypatch.setattr(K, name, getattr(K, name + "_plain"))
+        graph = TS.make_step(ds, **STEP_KW)
+        graph(s0, False)                                    # capture
+        K.reset_counts()
+        out[route] = TS._tree_map(torch.clone, graph(s0, False))
+        torch.cuda.synchronize()
+        c = K.counts()
+        if route == "kernel":
+            for name in ("expf64_sum", "expf64_max_abs", "expf64_split"):
+                assert c[name] > 0 and c[name + "_plain"] == 0, name
+        info[route] = graph.buffers["graph"].times.info
+        print(route, {k: info[route][k] for k in
+                      ("phases", "kernel_nodes", "port_launches",
+                       "torch_nodes")})
+    assert _same_tree(out["kernel"], out["plain"])
+    assert info["kernel"]["torch_nodes"] <= info["plain"]["torch_nodes"] - 150
+    for a, b in zip(*(zip(i["kernel_nodes"], i["port_launches"])
+                      for i in (info["kernel"], info["plain"]))):
+        assert a[0] - a[1] <= b[0] - b[1]
 
 
 # ---------------------------------------------------------------------------

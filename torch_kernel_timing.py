@@ -21,7 +21,11 @@ tree_sum`` records (nw, shape, axis)), the fused forms through
 operand shapes, scale: None, a constant or its shape, mask shape)), the
 fused tree sums through ``clrs_tpu_torch.dd.linalg`` (``--kernel
 tree_fused`` records (nw, x, y, axis, acc, sub, scale_on, scale shape)) and
-the commit's select (``--kernel select`` records (nw, leaf shapes)), and
+the commit's select (``--kernel select`` records (nw, leaf shapes)), the
+f64 boundary through ``clrs_tpu_torch.solver.step`` and
+``clrs_tpu_torch.dd.linalg`` (``--kernel expf64`` records (form, nw, shape,
+acc), form one of sum, max_abs, split, acc whether max_abs folds an
+accumulator in), and
 the step-length eigensolver through ``clrs_tpu_torch.solver.step``
 (``--kernel eig_lowest`` and ``eig_pairs`` record (B, n); with eig_pairs
 the solve runs again on the certified route, which calls it). Then
@@ -38,8 +42,10 @@ normal [L, n, n] words with mu and alpha as [L, 1, 1] broadcast scalars,
 the expansion ops and tree sums on contiguous words of the recorded shapes
 (word 0 over 16 decades, word k about 2^-24k of it), with {0,1} masks and
 scales, the select with a true cond (every word moves), the eigensolvers on
-random symmetric batches; for these the plain version's time, its bit
-identity with the kernel and cuSOLVER's time for the same function
+random symmetric batches; for these and the f64 boundary (words as the
+expansion ops', split sources standard normal f64) the plain version's
+time and its bit identity with the kernel, and for the eigensolvers
+cuSOLVER's time for the same function
 (torch.linalg.eigvalsh's lowest column, torch.linalg.eigh) as well, and
 for eig_pairs its two launches apart (the sweep kernel, the replay of its
 rotation logs on V with the replay's bound) with the members' sweep
@@ -64,6 +70,7 @@ another checkout times that checkout's kernels. On a machine with a card:
     python3 torch_kernel_timing.py --kernel cascade --d 0 --shape cascade:5,4,22,22,diags
     python3 torch_kernel_timing.py --kernel expmap,tree_sum --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel expfuse,tree_fused,select --d 95 --iters 1
+    python3 torch_kernel_timing.py --kernel expf64 --d 40 --iters 1 --shape "expf64:('max_abs',5,(12,27,27),True)"
     python3 torch_kernel_timing.py --kernel eig_lowest,eig_pairs --d 95 --iters 1
     python3 torch_kernel_timing.py --kernel eig_lowest,eig_pairs --d 0 --shape eig_pairs:2,128
 """
@@ -96,6 +103,8 @@ RECORDED = {"tri": ((("dd.linalg", "K"),), ("tri_solve_batched",)),
                         ("ew_fma", "ew_fms", "ew_msub", "ew_mms", "ew_sub2")),
             "tree_fused": ((("dd.linalg", "K"),), ("tree_sum_fused",)),
             "select": ((("dd.arith", "K"),), ("ew_select",)),
+            "expf64": ((("solver.step", "dk"), ("dd.linalg", "K")),
+                       ("expf64_sum", "expf64_max_abs", "expf64_split")),
             "eig_lowest": ((("solver.step", "dk"),), ("eig_lowest",)),
             "eig_pairs": ((("solver.step", "dk"),), ("eig_pairs",))}
 FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
@@ -110,6 +119,7 @@ FIELDS = {"tri": ("nw", "B", "n", "m", "trans"), "chol": ("nw", "B", "n"),
           "tree_fused": ("nw", "x", "y", "axis", "acc", "sub", "scale_on",
                          "scale"),
           "select": ("nw", "shapes"),
+          "expf64": ("form", "nw", "shape", "acc"),
           "eig_lowest": ("B", "n"), "eig_pairs": ("B", "n")}
 
 
@@ -178,6 +188,12 @@ def _shape(kernel, wrapper, args, kw):
                                         for src, _ in pairs))
     if kernel in ("eig_lowest", "eig_pairs"):
         return tuple(args[0].shape[:2])
+    if kernel == "expf64":
+        form = wrapper.split("_", 1)[1]
+        if form == "split":
+            return (form, args[1], tuple(args[0].shape), False)
+        acc = kw.get("acc", args[1] if len(args) > 1 else None)
+        return (form, len(args[0]), tuple(args[0][0].shape), acc is not None)
     a, b = args
     return tuple(a.shape) + (b.shape[2],)
 
@@ -329,6 +345,16 @@ def inputs(kernel, key, rng, S, K):
     if kernel in ("eig_lowest", "eig_pairs"):
         return (kernel, getattr(K, kernel), getattr(K, kernel + "_plain"),
                 (eig_input(kernel, key, rng),))
+    if kernel == "expf64":
+        form, nw, shape, acc = key
+        name = "expf64_" + form
+        if form == "split":
+            a = (torch.from_numpy(rng.standard_normal(shape)).to("cuda"), nw)
+        else:
+            a = (S._exp_words(rng, shape, nw),) + (
+                (torch.ones((), dtype=torch.float64, device="cuda"),)
+                if acc else ())
+        return (name, getattr(K, name), getattr(K, name + "_plain"), a)
     B, M, k, N = key
     a, b = (torch.from_numpy(rng.integers(-65, 66, s).astype(np.int8))
             .to("cuda") for s in ((B, M, k), (B, k, N)))
@@ -412,6 +438,8 @@ def _bound_ms(kernel, key, S, K):
         return S.bound(*S.cost_tree_fused(*key))[0]
     if kernel == "select":
         return S.bound(*S.cost_select(*key))[0]
+    if kernel == "expf64":
+        return S.bound(*S.cost_expf64(*key))[0]
     nw, B, d0, d1, side, _, L = key
     return S.bound(*S.cost_extract(nw, L, B, d0, d1, side))[0]
 
@@ -461,7 +489,7 @@ def _parse_key(kernel, text):
     def dims(v):
         return () if v == "-" else tuple(int(d) for d in v.split("x"))
 
-    if kernel in ("expfuse", "tree_fused", "select"):
+    if kernel in ("expfuse", "tree_fused", "select", "expf64"):
         import ast
 
         return tuple(ast.literal_eval(text))
@@ -546,18 +574,20 @@ def main():
             per_it = calls / args.iters
             row = dict(zip(FIELDS[k], key), calls_per_iteration=per_it,
                        ms=ms, ms_per_iteration=per_it * ms)
-            if k in ("eig_lowest", "eig_pairs"):
-                lib = library_eig(k)
+            if k in ("eig_lowest", "eig_pairs", "expf64"):
                 same, _ = S._compare(S._flat(fn(*a)), S._flat(plain(*a)))
                 row.update(bit_identical_to_plain=same,
-                           plain_ms=S.time_ms(lambda: plain(*a), 1),
-                           library_ms=S.time_ms(lambda: lib(*a), args.reps))
+                           plain_ms=S.time_ms(lambda: plain(*a), 1))
+            if k in ("eig_lowest", "eig_pairs"):
+                lib = library_eig(k)
+                row["library_ms"] = S.time_ms(lambda: lib(*a), args.reps)
             if k == "eig_pairs":
                 row.update(eig_pairs_parts(a[0], args.reps, S, K))
             row["bound_ms"] = _bound_ms(k, key, S, K)
             rows.append(row)
             form = (("transposed" if key[-1] else "forward") if k == "tri"
-                    else key[0] if k in ("plmap", "expmap", "expfuse")
+                    else key[0] if k in ("plmap", "expmap", "expfuse",
+                                         "expf64")
                     else "all")
             sums[form] += per_it * ms
         print(json.dumps({
